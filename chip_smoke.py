@@ -7,22 +7,44 @@ Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
 
 1. the card's name and power limit, from nvidia-smi;
-2. build every CUDA kernel of the serve path from csrc/, all at once;
-3. hold each kernel against its plain PyTorch version on the card, exactly
-   (the NMS keep mask is a bitmask: no tolerance), on random boxes at
-   B=8 N=1024, on class-offset boxes with zeroed padding rows, and on a
-   1024-deep suppression chain;
-4. the main path: a full-width YOLOv5s (80 classes, 640², bf16, random
-   weights from seed 0) answers six frames of mixed sizes in two requests
-   through make_packed_serve_step + Detector. The kernels' launch counts are
-   reset just before and read just after; every kernel must have launched.
-   Its dets must be finite, inside their frames, and equal to the dets of
-   the plain NMS on the same candidates; the f32 network must match its CPU
-   run on a small input (TF32 off);
-5. times on the card (CUDA events): the kernel and its plain version at
-   B=8 and B=32, N=1024, beside the kernel's bound, and the serve step at
-   B=32 with its breakdown. No PyTorch call computes greedy NMS (there is no
-   torchvision), so the kernel has no library yardstick: library_ms is null.
+2. build every CUDA kernel of csrc/ (nms_fixpoint, nms_mask, iou_matrix),
+   all nvcc processes at once;
+3. hold each kernel against its plain PyTorch version on the card:
+   - the NMS keep masks exactly (a bitmask: no tolerance): nms_fixpoint and
+     nms_mask on random boxes at B=8 N=1024, on class-offset boxes with
+     zeroed padding rows and on a 1024-deep suppression chain; nms_mask also
+     at N=2048 (beyond nms_fixpoint's limit), and the two kernels against
+     each other on one input;
+   - iou_matrix within 1 ulp (bit equality is expected) at (1024, 8192) and
+     at a ragged (1000, 25200) whose zero-area rows must give exact zeros;
+4. the main path, a full-width YOLOv5s (80 classes, 640², bf16, random
+   weights from seed 0), driven through three paths, each with the launch
+   counts reset just before and read just after:
+   a. serve: six frames of mixed sizes in two requests through
+      make_packed_serve_step + Detector; nms_fixpoint must launch. The dets
+      must be finite, inside their frames, and equal to the dets of the
+      plain NMS on the same candidates; the f32 network must match its CPU
+      run on a small input (TF32 off);
+   b. eval: 64 seeded frames of mixed sizes, letterboxed to 640², with
+      seeded ground truth, in batches of 32 through the port's Evaluator,
+      on the unfused route (forward_for_eval + make_postprocess; nms_mask
+      must launch) and on the packed route (step_fn=make_packed_serve_step;
+      nms_fixpoint must launch). On the unfused route's candidates, the
+      dets and COCO stats through the kernel must equal those of
+      batched_nms on CPU copies. Gt boxes painted into raw head maps
+      through the decode inverse must score AP > 0.99 through nms_mask,
+      with and without a letterbox inverse. Random weights score AP near 0
+      on the noise frames; the point there is the path, not the score;
+   c. iou: the public op ops.boxes.iou_matrix at (1024, 25200); iou_matrix
+      must launch (the kernel has no caller in the reference package but
+      its tests, so its op is its path);
+5. times on the card (CUDA events): each kernel and its plain version
+   beside the kernel's bound (nms_fixpoint at B=8 and B=32 N=1024, nms_mask
+   at B=32 N=1024 and B=8 N=2048, iou_matrix at (1024, 25200)), the serve
+   step at B=32 with its breakdown, the unfused eval step's breakdown, and
+   eval images/s (host accumulate included) on both routes at B=32. No
+   single PyTorch call computes greedy NMS or a pairwise IoU matrix (there
+   is no torchvision), so library_ms is null for every kernel.
 
 The two lines before the last are the kernels line, {"kernels": [...]},
 and the card's nvidia-smi line; the last line is {"ok": true, "device":
@@ -32,6 +54,7 @@ and the card's nvidia-smi line; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +66,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 NMS_OPS_PER_PAIR = 14   # min, max x4, sub x2, mul, add x2, sub, mul, cmp
+IOU_OPS_PER_PAIR = 13   # min, max x4, sub x2, mul, add, sub, add, div
+NO_LIBRARY = ("no single PyTorch call computes it (greedy NMS and the "
+              "pairwise IoU matrix are torchvision ops, and there is no "
+              "torchvision)")
 
 
 def log(msg: str) -> None:
@@ -67,7 +94,7 @@ def sorted_boxes(rng, b, n, size=640.0):
 
 
 def class_offset_boxes(rng, b, n, n_pad, num_classes=80):
-    """Class-offset boxes as nms_sorted_candidates builds them, with the last
+    """Class-offset boxes as the NMS entries build them, with the last
     n_pad rows zeroed (inert padding)."""
     boxes = sorted_boxes(rng, b, n)
     cls = rng.integers(0, num_classes, (b, n, 1)).astype(np.float32)
@@ -108,6 +135,88 @@ def nms_bound_ms(b: int, n: int) -> tuple:
             "bytes" if t_bytes > t_ops else "operations")
 
 
+def iou_bound_ms(n: int, m: int) -> tuple:
+    """Least time for the (n, m) IoU matrix: both box sets read and the f32
+    matrix written over HBM rate, the pairwise ops over the f32 rate."""
+    t_bytes = (4 * n * m + 16 * (n + m)) / HBM_BYTES_PER_S
+    t_ops = n * m * IOU_OPS_PER_PAIR / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def max_ulp(a, b) -> int:
+    """Largest distance in float32 ulps between two non-negative tensors
+    (+0.0 folds -0.0 onto +0.0)."""
+    import torch
+    ia = (a.float() + 0.0).view(torch.int32).long()
+    ib = (b.float() + 0.0).view(torch.int32).long()
+    return int((ia - ib).abs().max())
+
+
+def _logit(p: float) -> float:
+    return float(np.log(p / (1 - p)))
+
+
+def paint_raw_maps(gts_cxcywh, classes, img_size, nc):
+    """Raw YOLOv5 head maps (numpy, one image) that decode to the given gt
+    boxes: each box goes to the level and anchor nearest its shape,
+    through the inverse of the v6.1 decode."""
+    from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
+                                                       YOLOV5_STRIDES)
+    raws = [np.full((1, img_size // s, img_size // s, 3 * (5 + nc)), -12.0,
+                    np.float32) for s in YOLOV5_STRIDES]
+    for (cx, cy, w, h), c in zip(gts_cxcywh, classes):
+        best = None
+        for lvl, anchors in enumerate(YOLOV5_ANCHORS):
+            for ai, (aw, ah) in enumerate(anchors):
+                if w < 4 * aw and h < 4 * ah:
+                    err = abs(np.log(w / aw)) + abs(np.log(h / ah))
+                    if best is None or err < best[0]:
+                        best = (err, lvl, ai, aw, ah)
+        _, lvl, ai, aw, ah = best
+        stride = YOLOV5_STRIDES[lvl]
+        gx, gy = int(cx / stride), int(cy / stride)
+        sig = [(cx / stride - gx + 0.5) / 2.0, (cy / stride - gy + 0.5) / 2.0,
+               np.sqrt(w / aw) / 2.0, np.sqrt(h / ah) / 2.0]
+        if not all(0 < s_ < 1 for s_ in sig):
+            raise ValueError(f"gt {(cx, cy, w, h)} cannot be painted")
+        base = ai * (5 + nc)
+        raws[lvl][0, gy, gx, base:base + 5] = [_logit(s_) for s_ in sig] + [9.0]
+        raws[lvl][0, gy, gx, base + 5 + int(c)] = 9.0
+    return raws
+
+
+def eval_batches(rng, n_frames, batch, img_size, letterbox_np):
+    """Seeded frames of mixed sizes (uint8 noise), letterboxed to
+    img_size², in batches for the Evaluator, and their seeded gt as
+    (img_id, boxes xywh, classes) in source coordinates."""
+    sizes = [(480, 640), (720, 1280), (640, 640), (375, 500), (1080, 1920),
+             (640, 427), (512, 512), (300, 400)]
+    batches, gts = [], []
+    for start in range(0, n_frames, batch):
+        imgs, ids, scales, pxs, pys, hws = [], [], [], [], [], []
+        for k in range(start, min(start + batch, n_frames)):
+            h, w = sizes[k % len(sizes)]
+            frame = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+            n_gt = int(rng.integers(2, 9))
+            wh = rng.uniform(0.03, 0.5, (n_gt, 2)) * [w, h]
+            xy = rng.uniform(0, 1, (n_gt, 2)) * ([w, h] - wh)
+            gts.append((k, np.concatenate([xy, wh], 1),
+                        rng.integers(0, 80, n_gt)))
+            lb, _, meta = letterbox_np(frame, np.zeros((0, 4), np.float32),
+                                       img_size)
+            imgs.append(lb)
+            ids.append(k)
+            scales.append(meta["scale"])
+            pxs.append(meta["pad_x"])
+            pys.append(meta["pad_y"])
+            hws.append((h, w))
+        batches.append({"image": np.stack(imgs), "img_id": ids,
+                        "scale": scales, "pad_x": pxs, "pad_y": pys,
+                        "orig_hw": hws})
+    return batches, gts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -121,19 +230,27 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
         return 2
-    from heltondetection_tpu_torch.engine.evaluator import \
-        make_packed_serve_step
+    from heltondetection_tpu_torch.data.letterbox import letterbox_np
+    from heltondetection_tpu_torch.engine.evaluator import (
+        Evaluator, make_packed_serve_step, multilabel_candidates)
     from heltondetection_tpu_torch.engine.infer import Detector
+    from heltondetection_tpu_torch.engine.runner import forward_for_eval
     from heltondetection_tpu_torch.kernels import (KERNELS, build,
                                                    launch_counts,
                                                    reset_launch_counts)
+    from heltondetection_tpu_torch.kernels import iou as iou_kernel
     from heltondetection_tpu_torch.kernels import nms as nms_kernel
     from heltondetection_tpu_torch.models.yolov5 import (build_yolov5,
+                                                         decode_full,
                                                          packed_copy)
-    from heltondetection_tpu_torch.ops.nms import (nms_mask_fixpoint,
+    from heltondetection_tpu_torch.ops.boxes import (box_iou_matrix,
+                                                     iou_matrix)
+    from heltondetection_tpu_torch.ops.nms import (batched_nms,
+                                                   nms_mask_fixpoint,
                                                    nms_mask_seq)
     from heltondetection_tpu_torch.ops.postprocess import (
         _MAX_WH, fused_select_decode_packed, nms_sorted_candidates)
+    from heltondetection_tpu_torch.utils.cocoeval import DetEval
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -156,7 +273,7 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    # 3. kernel vs plain, exact
+    # 3a. nms_fixpoint vs plain, exact
     rng = np.random.default_rng(0)
     thr = 0.65
     cases = {
@@ -176,8 +293,8 @@ def main() -> int:
         mismatches += diff
         max_abs_err = max(max_abs_err,
                           float((got.float() - want.float()).abs().max()))
-        log(f"kernel vs plain [{label}]: {diff} of {got.numel()} differ, "
-            f"{int(got.sum())} kept")
+        log(f"nms_fixpoint vs plain [{label}]: {diff} of {got.numel()} "
+            f"differ, {int(got.sum())} kept")
         if label == "1024-deep chain":
             seq = nms_mask_seq(t[0], thr)
             if not torch.equal(seq, got[0]) or int(got.sum()) != 512:
@@ -187,7 +304,59 @@ def main() -> int:
         raise AssertionError(f"kernel keep masks differ from the plain "
                              f"version in {mismatches} places")
 
-    # 4. the main path
+    # 3b. nms_mask vs plain (the batched row scan), exact
+    cases2 = dict(cases)
+    cases2["class-offset, 500 padding rows, B=4 N=2048"] = \
+        class_offset_boxes(rng, 4, 2048, 500)
+    mask_err = 0.0
+    for label, boxes in cases2.items():
+        t = torch.from_numpy(boxes).to(dev)
+        got = nms_kernel.nms_mask(t, thr)
+        torch.cuda.synchronize()
+        want = nms_mask_seq(t, thr)
+        diff = int((got != want).sum())
+        mask_err = max(mask_err,
+                       float((got.float() - want.float()).abs().max()))
+        log(f"nms_mask vs plain [{label}]: {diff} of {got.numel()} differ, "
+            f"{int(got.sum())} kept")
+        if diff:
+            raise AssertionError(f"nms_mask differs from the plain row scan "
+                                 f"in {diff} places [{label}]")
+        if label == "1024-deep chain" and int(got.sum()) != 512:
+            raise AssertionError("chain: nms_mask kept "
+                                 f"{int(got.sum())}, not 512")
+    t = torch.from_numpy(cases["random B=8 N=1024"]).to(dev)
+    k1, k2 = nms_kernel.nms_fixpoint(t, thr), nms_kernel.nms_mask(t, thr)
+    if not torch.equal(k1, k2):
+        raise AssertionError("nms_mask and nms_fixpoint disagree on one "
+                             "input")
+    log("nms_mask == nms_fixpoint on the random B=8 N=1024 input")
+
+    # 3c. iou_matrix vs plain, within 1 ulp
+    iou_ulp, iou_err = 0, 0.0
+    for label, (n, m, n_zero) in {"(1024, 8192)": (1024, 8192, 0),
+                                  "ragged (1000, 25200), 37 zero-area rows":
+                                      (1000, 25200, 37)}.items():
+        a = torch.from_numpy(sorted_boxes(rng, 1, n)[0]).to(dev)
+        b = torch.from_numpy(sorted_boxes(rng, 1, m)[0]).to(dev)
+        zero_rows = torch.arange(n_zero, device=dev) * 7
+        a[zero_rows] = 0.0
+        got = iou_kernel.iou_matrix(a, b)
+        torch.cuda.synchronize()
+        want = box_iou_matrix(a, b)
+        ulp = max_ulp(got, want)
+        err = float((got - want).abs().max())
+        n_diff = int((got != want).sum())
+        iou_ulp, iou_err = max(iou_ulp, ulp), max(iou_err, err)
+        log(f"iou_matrix vs plain [{label}]: {n_diff} of {got.numel()} "
+            f"differ, max {ulp} ulp, max abs err {err:.3g}")
+        if ulp > 1:
+            raise AssertionError(f"iou_matrix is {ulp} ulp from the plain "
+                                 f"version [{label}]")
+        if n_zero and bool((got[zero_rows] != 0).any()):
+            raise AssertionError("zero-area rows gave non-zero IoU")
+
+    # 4a. the serve path
     t0 = time.perf_counter()
     model = build_yolov5("s", 80, dtype=torch.bfloat16, device=dev,
                          generator=torch.Generator().manual_seed(0))
@@ -208,12 +377,11 @@ def main() -> int:
     answers = [detector.detect_batch(req) for req in requests]
     torch.cuda.synchronize()
     counts = dict(launch_counts)
-    log(f"main path: {sum(map(len, requests))} frames in {len(requests)} "
+    log(f"serve path: {sum(map(len, requests))} frames in {len(requests)} "
         f"requests, launches {counts}")
-    for name in KERNELS:
-        if counts[name] < 1:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    if counts["nms_fixpoint"] < 1:
+        raise AssertionError("nms_fixpoint was not launched on the serve "
+                             "path")
     n_dets = 0
     for req, ans in zip(requests, answers):
         for frame, (boxes, scores, classes) in zip(req, ans):
@@ -283,6 +451,148 @@ def main() -> int:
         f"(max |logit| {scale:.3g})")
     if not net_err <= 1e-3 * max(1.0, scale):
         raise AssertionError("f32 network on the card disagrees with the CPU")
+    del model32, got, ref
+
+    # 4b. the eval path, both routes
+    t0 = time.perf_counter()
+    batches, gts = eval_batches(np.random.default_rng(2), 64, 32, 640,
+                                letterbox_np)
+    log(f"eval data: 64 frames letterboxed to 640² in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{sum(len(g[2]) for g in gts)} gt boxes")
+
+    def gt_eval():
+        ev = DetEval(80)
+        for img_id, xywh, classes in gts:
+            ev.add_gt(img_id, xywh, classes)
+        return ev
+
+    fwd = forward_for_eval(model, 80, device=dev)
+    kw = dict(conf_thres=0.001, iou_thres=thr, pre_nms_topk=1024,
+              max_det=300)
+    routes = {
+        "unfused": (Evaluator(fwd, 80, device=dev, **kw), "nms_mask"),
+        "packed": (Evaluator(None, 80, device=dev, step_fn=(
+            make_packed_serve_step(model, 80, device=dev, **kw))),
+            "nms_fixpoint"),
+    }
+    eval_stats, eval_counts, eval_rates = {}, {}, {}
+    for name, (ev, kernel) in routes.items():
+        ev.run(batches[:1], det_eval=DetEval(80))        # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stats = ev.run(batches, det_eval=gt_eval())
+        torch.cuda.synchronize()
+        eval_counts[name] = dict(launch_counts)
+        eval_stats[name] = stats
+        eval_rates[name] = [stats["images_per_sec"]] + [
+            ev.run(batches, det_eval=gt_eval())["images_per_sec"]
+            for _ in range(2)]
+        log(f"eval [{name}]: {stats['num_images']} images, "
+            f"{stats['images_per_sec']:.2f} img/s (host accumulate "
+            f"included; repeats {eval_rates[name][1]:.2f}, "
+            f"{eval_rates[name][2]:.2f}), AP {stats['AP']:.6f} AP50 "
+            f"{stats['AP50']:.6f}, launches {eval_counts[name]}")
+        if eval_counts[name][kernel] < 1:
+            raise AssertionError(f"{kernel} was not launched on the "
+                                 f"{name} eval route")
+        if stats["num_images"] != 64 or not all(
+                math.isfinite(v) and -1.0 <= v <= 1.0
+                for k, v in stats.items()
+                if k not in ("images_per_sec", "num_images")):
+            raise AssertionError(f"eval [{name}]: bad stats {stats}")
+
+    # the host side of one eval batch of 32: staging the uint8 frames in
+    # pinned memory, and the accumulate (letterbox inverse and add_det)
+    meta0 = (batches[0]["img_id"], batches[0]["scale"], batches[0]["pad_x"],
+             batches[0]["pad_y"], batches[0]["orig_hw"])
+    t0 = time.perf_counter()
+    torch.from_numpy(batches[0]["image"]).pin_memory()
+    pin_ms = (time.perf_counter() - t0) * 1e3
+    out0 = routes["unfused"][0]._dispatch(batches[0]["image"])
+    out0[1].synchronize()
+    t0 = time.perf_counter()
+    n_img0 = Evaluator._accumulate(gt_eval(), out0, meta0)
+    acc_ms = (time.perf_counter() - t0) * 1e3
+    log(f"eval host side, one batch of {n_img0} images: pinned staging "
+        f"{pin_ms:.3f} ms, accumulate {acc_ms:.3f} ms "
+        f"({int(out0[0][3].sum())} dets)")
+
+    # the unfused route's candidates through nms_mask and through the plain
+    # batched_nms on CPU copies: the same dets and the same stats
+    ev_k, ev_p = gt_eval(), gt_eval()
+    n_kept = 0
+    for batch in batches:
+        meta = (batch["img_id"], batch["scale"], batch["pad_x"],
+                batch["pad_y"], batch["orig_hw"])
+        with torch.inference_mode():
+            cand = multilabel_candidates(
+                *fwd(torch.from_numpy(batch["image"]).to(dev)),
+                topk=1024, conf_thres=0.001)
+            nms_kw = dict(iou_thres=thr, score_thres=0.001,
+                          pre_nms_topk=1024, max_det=300)
+            dets_k = tuple(t.cpu() for t in batched_nms(*cand, **nms_kw))
+            dets_p = batched_nms(*(t.cpu() for t in cand), **nms_kw)
+        for a, b in zip(dets_k, dets_p):
+            if not torch.equal(a, b):
+                raise AssertionError("eval dets through nms_mask differ "
+                                     "from the plain batched_nms's")
+        n_kept += int(dets_k[3].sum())
+        Evaluator._accumulate(ev_k, (dets_k, None), meta)
+        Evaluator._accumulate(ev_p, (dets_p, None), meta)
+    s_k, s_p = ev_k.summarize(), ev_p.summarize()
+    if s_k != s_p:
+        raise AssertionError(f"stats through nms_mask {s_k} != plain {s_p}")
+    log(f"eval candidates, 64 frames: dets and stats through nms_mask == "
+        f"plain batched_nms on CPU copies ({n_kept} dets, AP {s_k['AP']:.6f})")
+
+    # painted gt at 640²: AP > 0.99 through nms_mask, with and without a
+    # letterbox inverse (a 1280x1248 source at scale 0.5, pad_x 8)
+    gts_lb = [(100.0, 120.0, 60.0, 80.0), (320.0, 300.0, 200.0, 150.0),
+              (500.0, 520.0, 24.0, 30.0), (200.0, 450.0, 300.0, 260.0),
+              (560.0, 90.0, 90.0, 60.0), (420.0, 600.0, 12.0, 16.0)]
+    gt_cls = [0, 17, 42, 79, 5, 63]
+    raws = [torch.from_numpy(r).to(dev)
+            for r in paint_raw_maps(gts_lb, gt_cls, 640, 80)]
+    painted = Evaluator(lambda images: decode_full(raws, 80), 80,
+                        conf_thres=0.1, pre_nms_topk=1024, max_det=300,
+                        device=dev)
+    geometry = {}
+    for label, (s_, px, py, hw) in {
+            "identity": (1.0, 0.0, 0.0, (640, 640)),
+            "letterbox": (0.5, 8.0, 0.0, (1280, 1248))}.items():
+        ev = DetEval(80)
+        xywh = []
+        for cx, cy, w, h in gts_lb:
+            x1 = np.clip((cx - w / 2 - px) / s_, 0, hw[1])
+            y1 = np.clip((cy - h / 2 - py) / s_, 0, hw[0])
+            x2 = np.clip((cx + w / 2 - px) / s_, 0, hw[1])
+            y2 = np.clip((cy + h / 2 - py) / s_, 0, hw[0])
+            xywh.append((x1, y1, x2 - x1, y2 - y1))
+        ev.add_gt("painted", xywh, gt_cls)
+        reset_launch_counts()
+        stats = painted.run([{
+            "image": np.zeros((1, 640, 640, 3), np.uint8),
+            "img_id": ["painted"], "scale": [s_], "pad_x": [px],
+            "pad_y": [py], "orig_hw": [hw]}], det_eval=ev)
+        geometry[label] = stats["AP"]
+        log(f"painted gt at 640² [{label}]: AP {stats['AP']:.6f} AP50 "
+            f"{stats['AP50']:.6f}, launches {dict(launch_counts)}")
+        if launch_counts["nms_mask"] < 1 or not stats["AP"] > 0.99:
+            raise AssertionError(f"painted gt [{label}]: AP {stats['AP']} "
+                                 f"or no nms_mask launch")
+
+    # 4c. the iou op's path
+    a_iou = torch.from_numpy(sorted_boxes(rng, 1, 1024)[0]).to(dev)
+    b_iou = torch.from_numpy(sorted_boxes(rng, 1, 25200)[0]).to(dev)
+    reset_launch_counts()
+    iou_out = iou_matrix(a_iou, b_iou)
+    torch.cuda.synchronize()
+    iou_counts = dict(launch_counts)
+    log(f"iou path: ops.boxes.iou_matrix (1024, 25200), launches "
+        f"{iou_counts}")
+    if iou_counts["iou_matrix"] < 1 or tuple(iou_out.shape) != (1024, 25200):
+        raise AssertionError("iou_matrix was not launched by its op")
 
     # 5. times
     times = {}
@@ -299,6 +609,31 @@ def main() -> int:
             f"plain {times[b]['plain_ms']:.4f} ms, bound "
             f"{times[b]['bound'][0]:.5f} ms ({times[b]['bound'][1]})")
 
+    mask_times = {}
+    for b, n in ((32, 1024), (8, 2048)):
+        boxes = torch.from_numpy(class_offset_boxes(
+            np.random.default_rng(n + b), b, n, n // 5)).to(dev)
+        mask_times[(b, n)] = {
+            "ms": cuda_ms(lambda: nms_kernel.nms_mask(boxes, thr), 50),
+            "plain_ms": cuda_ms(lambda: nms_mask_seq(boxes, thr), 3,
+                                warmup=1),
+            "bound": nms_bound_ms(b, n),
+        }
+        mt = mask_times[(b, n)]
+        log(f"nms_mask B={b} N={n}: kernel {mt['ms']:.4f} ms, plain "
+            f"{mt['plain_ms']:.4f} ms, bound {mt['bound'][0]:.5f} ms "
+            f"({mt['bound'][1]})")
+
+    iou_t = {
+        "ms": cuda_ms(lambda: iou_kernel.iou_matrix(a_iou, b_iou), 20),
+        "plain_ms": cuda_ms(lambda: box_iou_matrix(a_iou, b_iou), 10),
+        "bound": iou_bound_ms(1024, 25200),
+    }
+    log(f"iou_matrix (1024, 25200): kernel {iou_t['ms']:.4f} ms, plain "
+        f"{iou_t['plain_ms']:.4f} ms, bound {iou_t['bound'][0]:.5f} ms "
+        f"({iou_t['bound'][1]})")
+    del iou_out
+
     xb = torch.from_numpy(np.random.default_rng(2).integers(
         0, 256, (32, 640, 640, 3)).astype(np.uint8)).to(dev)
     with torch.inference_mode():
@@ -312,33 +647,88 @@ def main() -> int:
                                              conf_thres=0.001)
         nms_ms = cuda_ms(lambda: nms_sorted_candidates(
             *cands32, iou_thres=thr, max_det=None), 10)
+        del outs, cands32
+        # the unfused eval step: forward + decode_full, candidates, NMS
+        ev_step_ms = cuda_ms(lambda: routes["unfused"][0]._step(xb), 5)
+        fd_ms = cuda_ms(lambda: fwd(xb), 5)
+        dec = fwd(xb)
+        ml_ms = cuda_ms(lambda: multilabel_candidates(
+            *dec, topk=1024, conf_thres=0.001), 10)
+        cand = multilabel_candidates(*dec, topk=1024, conf_thres=0.001)
+        bn_ms = cuda_ms(lambda: batched_nms(
+            *cand, iou_thres=thr, score_thres=0.001, pre_nms_topk=1024,
+            max_det=300), 10)
+        del dec, cand
     log(f"serve step B=32 640x640 bf16: {step_ms:.3f} ms/batch, "
         f"{32e3 / step_ms:.1f} img/s | forward {fwd_ms:.3f} ms, "
         f"select+decode {sel_ms:.3f} ms, nms_sorted_candidates "
         f"{nms_ms:.3f} ms (incl. kernel)")
+    log(f"unfused eval step B=32 640x640 bf16: {ev_step_ms:.3f} ms/batch | "
+        f"forward+decode_full {fd_ms:.3f} ms, multilabel_candidates "
+        f"{ml_ms:.3f} ms, batched_nms {bn_ms:.3f} ms (incl. kernel)")
 
     t32 = times[32]
+    m32, m2k = mask_times[(32, 1024)], mask_times[(8, 2048)]
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
         "replaces": "heltondetection_tpu/ops/nms.py:219",
         "launches": counts["nms_fixpoint"],
+        "launches_packed_eval": eval_counts["packed"]["nms_fixpoint"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound"][0], "bound_by": t32["bound"][1],
-        "library_ms": None,
+        "library_ms": None, "library_note": NO_LIBRARY,
         "ms_b8": times[8]["ms"], "plain_ms_b8": times[8]["plain_ms"],
         "bound_ms_b8": times[8]["bound"][0],
         "check": "exact keep masks (random, padding, 1024-deep chain, "
                  "serve candidates)",
+    }, {
+        "name": "nms_mask", "route": "cuda",
+        "source": "heltondetection_tpu_torch/csrc/nms_mask.cu",
+        "replaces": "heltondetection_tpu/ops/nms.py:145",
+        "launches": eval_counts["unfused"]["nms_mask"],
+        "max_abs_err": mask_err,
+        "shape": [32, 1024, 4],
+        "ms": m32["ms"], "plain_ms": m32["plain_ms"],
+        "bound_ms": m32["bound"][0], "bound_by": m32["bound"][1],
+        "library_ms": None, "library_note": NO_LIBRARY,
+        "ms_b8_n2048": m2k["ms"], "plain_ms_b8_n2048": m2k["plain_ms"],
+        "bound_ms_b8_n2048": m2k["bound"][0],
+        "check": "exact keep masks (random, padding, 1024-deep chain, "
+                 "N=2048, equal to nms_fixpoint, eval candidates)",
+    }, {
+        "name": "iou_matrix", "route": "cuda",
+        "source": "heltondetection_tpu_torch/csrc/iou_matrix.cu",
+        "replaces": "heltondetection_tpu/ops/boxes.py:143",
+        "launches": iou_counts["iou_matrix"],
+        "max_abs_err": iou_err, "max_ulp": iou_ulp,
+        "shape": [1024, 25200],
+        "ms": iou_t["ms"], "plain_ms": iou_t["plain_ms"],
+        "bound_ms": iou_t["bound"][0], "bound_by": iou_t["bound"][1],
+        "library_ms": None, "library_note": NO_LIBRARY,
+        "check": "within 1 ulp of box_iou_matrix (1024x8192, ragged "
+                 "1000x25200 with zero-area rows)",
     }]
     serve = {"serve_ms_per_batch_b32": step_ms,
              "serve_img_per_s_b32": 32e3 / step_ms,
              "forward_ms_b32": fwd_ms, "select_decode_ms_b32": sel_ms,
-             "nms_sorted_candidates_ms_b32": nms_ms,
-             "wall_s": time.perf_counter() - t_start}
+             "nms_sorted_candidates_ms_b32": nms_ms}
+    evals = {f"{name}_{key}": eval_stats[name][key]
+             for name in routes for key in ("images_per_sec", "AP", "AP50")}
+    evals.update({f"{name}_images_per_sec_runs": eval_rates[name]
+                  for name in routes})
+    evals.update({"host_pin_ms_b32": pin_ms, "host_accumulate_ms_b32": acc_ms,
+                  "unfused_step_ms_b32": ev_step_ms,
+                  "unfused_forward_decode_ms_b32": fd_ms,
+                  "unfused_multilabel_ms_b32": ml_ms,
+                  "unfused_batched_nms_ms_b32": bn_ms,
+                  "painted_AP_identity": geometry["identity"],
+                  "painted_AP_letterbox": geometry["letterbox"],
+                  "wall_s": time.perf_counter() - t_start})
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"eval": evals}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

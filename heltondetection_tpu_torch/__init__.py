@@ -8,7 +8,11 @@ needs ``nvcc``.
 
 Ported so far: the YOLOv5 packed-head serve path (uint8 NHWC frames →
 CSPDarknet → PAFPNv5 → packed head → fused select/decode → class-aware greedy
-NMS on the ``nms_fixpoint`` CUDA kernel) and the non-TTA ``Detector``.
+NMS on the ``nms_fixpoint`` CUDA kernel), the non-TTA ``Detector``, and the
+COCO eval path (``forward_for_eval`` → ``decode_full`` → multi-label
+candidates → ``batched_nms`` on the ``nms_mask`` CUDA kernel → letterbox
+inverse → the port's own ``DetEval``) through ``Evaluator``. The pairwise
+IoU op ``ops.boxes.iou_matrix`` runs the ``iou_matrix`` CUDA kernel.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).
@@ -17,7 +21,7 @@ CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).
 __version__ = "0.1.0"
 
 __all__ = ["build_yolov5", "make_packed_serve_step", "Detector",
-           "resolve_device"]
+           "Evaluator", "forward_for_eval", "resolve_device"]
 
 
 def __getattr__(name):
@@ -32,6 +36,12 @@ def __getattr__(name):
     if name == "Detector":
         from heltondetection_tpu_torch.engine.infer import Detector
         return Detector
+    if name == "Evaluator":
+        from heltondetection_tpu_torch.engine.evaluator import Evaluator
+        return Evaluator
+    if name == "forward_for_eval":
+        from heltondetection_tpu_torch.engine.runner import forward_for_eval
+        return forward_for_eval
     if name == "resolve_device":
         from heltondetection_tpu_torch.device import resolve_device
         return resolve_device

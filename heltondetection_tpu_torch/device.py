@@ -7,9 +7,14 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. A CUDA device without CUDA raises: the port never
-    falls back to the CPU on its own; pass ``device="cpu"`` to run there."""
+    falls back to the CPU on its own; pass ``device="cpu"`` to run there. A
+    CUDA device comes back with its index, so it compares equal to the
+    device of a tensor on it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -1,33 +1,52 @@
-"""Image detector over a serve step; counterpart of ``Detector`` in
-heltondetection_tpu/engine/infer.py, without TTA/WBF, video and file
-frontends (they come with the inference-surface slice)."""
+"""Image detector over a serve step or a forward; counterpart of
+``Detector`` in heltondetection_tpu/engine/infer.py, without TTA/WBF, video
+and file frontends (they come with the inference-surface slice)."""
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from heltondetection_tpu_torch.data.letterbox import letterbox_np
 from heltondetection_tpu_torch.device import resolve_device
+from heltondetection_tpu_torch.engine.evaluator import make_postprocess
 
 
 class Detector:
-    """Batched detection over RGB frames of any sizes. ``detect_fn(images
-    (B, S, S, 3) uint8) → (boxes, scores, classes, valid)`` in letterbox
-    coordinates, e.g. the step of
+    """Batched detection over RGB frames of any sizes.
+
+    ``detect_fn(images (B, S, S, 3) uint8) → (boxes, scores, classes,
+    valid)`` in letterbox coordinates, e.g. the step of
     :func:`heltondetection_tpu_torch.engine.evaluator.make_packed_serve_step`.
+    Or, with ``detect_fn=None``, ``forward_fn(images) → (boxes, obj, cls)``
+    (e.g. ``engine.runner.forward_for_eval``) followed by the single-label
+    :func:`make_postprocess` at ``conf_thres``, ``iou_thres`` and
+    ``max_det``, whose NMS is the ``nms_mask`` kernel on CUDA.
     Frames are letterboxed on the host and go to ``device`` (CUDA unless
     ``device="cpu"``) as one uint8 batch."""
 
-    def __init__(self, detect_fn: Callable, num_classes: int, img_size: int,
-                 *, tta: bool = False, device=None):
+    def __init__(self, detect_fn: Optional[Callable], num_classes: int,
+                 img_size: int, *, forward_fn: Optional[Callable] = None,
+                 conf_thres: float = 0.25, iou_thres: float = 0.45,
+                 max_det: int = 300, tta: bool = False, device=None):
         if tta:
             raise NotImplementedError("TTA/WBF is not ported yet")
+        if (detect_fn is None) == (forward_fn is None):
+            raise ValueError("need exactly one of detect_fn and forward_fn")
         self.device = resolve_device(device)
         self.num_classes = num_classes
         self.img_size = img_size
+        if detect_fn is None:
+            post = make_postprocess(num_classes, conf_thres=conf_thres,
+                                    iou_thres=iou_thres, max_det=max_det,
+                                    multi_label=False)
+
+            @torch.inference_mode()
+            def detect_fn(images):
+                return post(*forward_fn(images))
+
         self._detect = detect_fn
 
     def detect_image(self, img_rgb: np.ndarray

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("nms_fixpoint",)
+KERNELS = ("nms_fixpoint", "nms_mask", "iou_matrix")
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -4,11 +4,17 @@
 ``xywh`` COCO's (x_min, y_min, w, h). Every function takes any leading batch
 dims with the box dim last. ``bbox_iou``, the delta codecs and
 ``box_ioa_matrix`` come with the training and FasterRCNN slices.
+
+:func:`iou_matrix` is the public op of the ``iou_matrix`` CUDA kernel
+(``csrc/iou_matrix.cu``, counterpart of ``iou_matrix_pallas``); its plain
+version is :func:`box_iou_matrix`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from heltondetection_tpu_torch.kernels import iou as iou_kernel
 
 EPS = 1e-7
 
@@ -53,3 +59,13 @@ def box_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     area_a = box_area(boxes1)[..., :, None]
     area_b = box_area(boxes2)[..., None, :]
     return inter / (area_a + area_b - inter + EPS)
+
+
+def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU (N, M) f32 of xyxy boxes (N, 4) × (M, 4), any N and M.
+    On CUDA tensors this launches the ``iou_matrix`` kernel; on CPU
+    tensors it runs the plain :func:`box_iou_matrix`."""
+    if boxes1.device.type == "cpu" and boxes2.device.type == "cpu":
+        return box_iou_matrix(boxes1.float(), boxes2.float())
+    return iou_kernel.iou_matrix(boxes1.float().contiguous(),
+                                 boxes2.float().contiguous())

@@ -30,15 +30,8 @@ import torch.nn.functional as F
 from heltondetection_tpu_torch.models.yolov5 import packed_cls_width
 from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
                                                    YOLOV5_STRIDES)
-from heltondetection_tpu_torch.ops.nms import nms_mask_fixpoint_batched
-
-_MAX_WH = 8192.0  # class-offset stride; > any supported input size
-
-
-def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last dim, ties lower index first."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+from heltondetection_tpu_torch.ops.nms import (_MAX_WH, _topk,
+                                               nms_mask_fixpoint_batched)
 
 
 @functools.lru_cache(maxsize=16)

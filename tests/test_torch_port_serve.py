@@ -31,8 +31,10 @@ from heltondetection_tpu.engine.infer import Detector as JDetector
 
 import heltondetection_tpu_torch.device as port_device
 from heltondetection_tpu_torch.data.letterbox import letterbox_np
-from heltondetection_tpu_torch.engine.evaluator import make_packed_serve_step
+from heltondetection_tpu_torch.engine.evaluator import (Evaluator,
+                                                       make_packed_serve_step)
 from heltondetection_tpu_torch.engine.infer import Detector
+from heltondetection_tpu_torch.engine.runner import forward_for_eval
 from heltondetection_tpu_torch.kernels import launch_counts
 from heltondetection_tpu_torch.models.yolov5 import build_yolov5
 
@@ -159,7 +161,8 @@ def test_letterbox_matches_cv2(hw):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_yolov5",
-                                   "make_packed_serve_step", "Detector"])
+                                   "make_packed_serve_step", "Detector",
+                                   "Evaluator", "forward_for_eval"])
 def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
     """(h) with no CUDA, every entry point raises unless device="cpu"."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -170,6 +173,8 @@ def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
         "build_yolov5": lambda: build_yolov5("n", NC),
         "make_packed_serve_step": lambda: make_packed_serve_step(model, NC),
         "Detector": lambda: Detector(lambda x: x, NC, SIZE),
+        "Evaluator": lambda: Evaluator(lambda x: x, NC),
+        "forward_for_eval": lambda: forward_for_eval(model, NC),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
