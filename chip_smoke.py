@@ -12,9 +12,13 @@ fails:
 3. hold each kernel against its plain PyTorch version on the card:
    - the NMS keep masks exactly (a bitmask: no tolerance): nms_fixpoint and
      nms_mask on random boxes at B=8 N=1024, on class-offset boxes with
-     zeroed padding rows and on a 1024-deep suppression chain; nms_mask also
-     at N=2048 (beyond nms_fixpoint's limit), and the two kernels against
-     each other on one input;
+     zeroed padding rows, on a 1024-deep suppression chain, on identical
+     boxes (one kept per image) and on boxes that do not overlap (all
+     kept); nms_fixpoint also at B=1, at B=64 (its clusters run in waves)
+     and at the largest N its shared memory allows (2400 on an H100; one
+     more word must raise), with its build alone holding as many bits as
+     the plain suppression matrix; nms_mask also at N=2048, and the two
+     kernels against each other on one input;
    - iou_matrix within 1 ulp (bit equality is expected) at (1024, 8192) and
      at a ragged (1000, 25200) whose zero-area rows must give exact zeros;
 4. the main path, a full-width YOLOv5s (80 classes, 640², bf16, random
@@ -38,13 +42,19 @@ fails:
    c. iou: the public op ops.boxes.iou_matrix at (1024, 25200); iou_matrix
       must launch (the kernel has no caller in the reference package but
       its tests, so its op is its path);
-5. times on the card (CUDA events): each kernel and its plain version
-   beside the kernel's bound (nms_fixpoint at B=8 and B=32 N=1024, nms_mask
-   at B=32 N=1024 and B=8 N=2048, iou_matrix at (1024, 25200)), the serve
-   step at B=32 with its breakdown, the unfused eval step's breakdown, and
-   eval images/s (host accumulate included) on both routes at B=32. No
-   single PyTorch call computes greedy NMS or a pairwise IoU matrix (there
-   is no torchvision), so library_ms is null for every kernel.
+5. times on the card: each kernel through its wrapper by CUDA events over
+   back-to-back calls (host launch cost included), its device time by
+   kernel name from torch.profiler, and its plain version, beside the
+   kernel's bound: nms_fixpoint at B=1, 8, 32 and 64 N=1024, with its build
+   timed alone (a build-only instance), so scan = whole - build; nms_mask
+   at B=32 N=1024 and B=8 N=2048, its build and scan kernels read apart by
+   name; iou_matrix at (1024, 25200). Then the serve step at B=32 with its
+   breakdown, the unfused eval step's breakdown (CUDA events around each
+   part, and the profiler's device-busy time, idle share and top kernels
+   of each step), and eval images/s (host accumulate included) on both
+   routes at B=32. No single PyTorch call
+   computes greedy NMS or a pairwise IoU matrix (there is no torchvision),
+   so library_ms is null for every kernel.
 
 The two lines before the last are the kernels line, {"kernels": [...]},
 and the card's nvidia-smi line; the last line is {"ok": true, "device":
@@ -110,6 +120,20 @@ def chain_boxes(n):
                      np.full(n, 10.0)], -1).astype(np.float32)[None]
 
 
+def identical_boxes(b, n):
+    """Every row the same box: only row 0 of each image is kept."""
+    return np.tile(np.array([10.0, 20.0, 110.0, 90.0], np.float32),
+                   (b, n, 1))
+
+
+def disjoint_boxes(b, n):
+    """Boxes on a grid, none touching another: every row is kept."""
+    i = np.arange(n, dtype=np.float32)
+    x, y = (i % 64) * 20.0, (i // 64) * 20.0
+    one = np.stack([x, y, x + 10.0, y + 10.0], -1).astype(np.float32)
+    return np.broadcast_to(one, (b, n, 4)).copy()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean ms of fn() over iters runs, by CUDA events after warmup."""
     import torch
@@ -124,6 +148,47 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(fn, iters: int, names) -> dict:
+    """Device ms per call of fn() of each kernel whose name holds one of
+    names, from torch.profiler's key_averages() over iters calls after one
+    warm-up call; None where the trace shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for evt in prof.key_averages():
+        for name in names:
+            if name in evt.key and evt.device_time_total > 0:
+                out[name] = (out[name] or 0.0) + \
+                    evt.device_time_total / iters / 1e3
+    return out
+
+
+def device_kernels(fn, iters: int) -> list:
+    """[(name, device ms per call), ...] of every kernel, copy and fill
+    that fn() runs on the card, most time first, from torch.profiler over
+    iters calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(evt.key, evt.device_time_total / iters / 1e3)
+            for evt in prof.key_averages()
+            if str(evt.device_type).endswith("CUDA")]
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def nms_bound_ms(b: int, n: int) -> tuple:
@@ -247,7 +312,8 @@ def main() -> int:
                                                      iou_matrix)
     from heltondetection_tpu_torch.ops.nms import (batched_nms,
                                                    nms_mask_fixpoint,
-                                                   nms_mask_seq)
+                                                   nms_mask_seq,
+                                                   suppression_matrix)
     from heltondetection_tpu_torch.ops.postprocess import (
         _MAX_WH, fused_select_decode_packed, nms_sorted_candidates)
     from heltondetection_tpu_torch.utils.cocoeval import DetEval
@@ -282,32 +348,71 @@ def main() -> int:
             class_offset_boxes(rng, 8, 1024, 300),
         "1024-deep chain": chain_boxes(1024),
     }
+    # rows kept per image where the answer is known without the plain scan
+    known_kept = {"identical boxes B=2 N=1024": 1,
+                  "no overlap B=2 N=1024": 1024}
+    fix_rng = np.random.default_rng(3)
+    n_max = nms_kernel.nms_fixpoint_max_n(dev)
+    clusters = nms_kernel.nms_fixpoint_clusters(dev, 1024)
+    log(f"nms_fixpoint: N up to {n_max}; {clusters} images' clusters of "
+        f"four blocks run at once at N=1024 (a larger batch runs in waves)")
+    fix_cases = dict(cases)
+    fix_cases.update({
+        "random B=1 N=1024": sorted_boxes(fix_rng, 1, 1024),
+        "class-offset, 200 padding rows, B=64 N=1024 (cluster waves)":
+            class_offset_boxes(fix_rng, 64, 1024, 200),
+        "identical boxes B=2 N=1024": identical_boxes(2, 1024),
+        "no overlap B=2 N=1024": disjoint_boxes(2, 1024),
+        f"random B=4 N={n_max} (the largest N)":
+            sorted_boxes(fix_rng, 4, n_max),
+    })
     mismatches = 0
     max_abs_err = 0.0
-    for label, boxes in cases.items():
+    for label, boxes in fix_cases.items():
         t = torch.from_numpy(boxes).to(dev)
         got = nms_kernel.nms_fixpoint(t, thr)
+        bits = nms_kernel.nms_fixpoint_build(t, thr)
         torch.cuda.synchronize()
         want = nms_mask_fixpoint(t, thr)
+        want_bits = suppression_matrix(t, thr).sum((-1, -2))
         diff = int((got != want).sum())
         mismatches += diff
         max_abs_err = max(max_abs_err,
                           float((got.float() - want.float()).abs().max()))
+        bits_equal = torch.equal(bits.long(), want_bits.long())
         log(f"nms_fixpoint vs plain [{label}]: {diff} of {got.numel()} "
-            f"differ, {int(got.sum())} kept")
+            f"differ, {int(got.sum())} kept; build alone sets "
+            f"{int(bits.sum())} bits, plain S {int(want_bits.sum())}")
+        if not bits_equal:
+            raise AssertionError(f"nms_fixpoint's build sets other bits "
+                                 f"than the plain S [{label}]")
         if label == "1024-deep chain":
             seq = nms_mask_seq(t[0], thr)
             if not torch.equal(seq, got[0]) or int(got.sum()) != 512:
                 raise AssertionError("chain: kernel disagrees with the "
                                      "sequential greedy scan")
+        if label in known_kept and not bool(
+                (got.sum(-1) == known_kept[label]).all()):
+            raise AssertionError(f"nms_fixpoint [{label}] kept "
+                                 f"{got.sum(-1).tolist()} per image")
     if mismatches:
         raise AssertionError(f"kernel keep masks differ from the plain "
                              f"version in {mismatches} places")
+    try:
+        nms_kernel.nms_fixpoint(torch.zeros((1, n_max + 32, 4), device=dev),
+                                thr)
+    except ValueError as e:
+        log(f"nms_fixpoint at N={n_max + 32} raises: {e}")
+    else:
+        raise AssertionError(f"nms_fixpoint ran at N={n_max + 32}, past "
+                             f"its shared memory")
 
     # 3b. nms_mask vs plain (the batched row scan), exact
     cases2 = dict(cases)
     cases2["class-offset, 500 padding rows, B=4 N=2048"] = \
         class_offset_boxes(rng, 4, 2048, 500)
+    for label in known_kept:
+        cases2[label] = fix_cases[label]
     mask_err = 0.0
     for label, boxes in cases2.items():
         t = torch.from_numpy(boxes).to(dev)
@@ -325,6 +430,10 @@ def main() -> int:
         if label == "1024-deep chain" and int(got.sum()) != 512:
             raise AssertionError("chain: nms_mask kept "
                                  f"{int(got.sum())}, not 512")
+        if label in known_kept and not bool(
+                (got.sum(-1) == known_kept[label]).all()):
+            raise AssertionError(f"nms_mask [{label}] kept "
+                                 f"{got.sum(-1).tolist()} per image")
     t = torch.from_numpy(cases["random B=8 N=1024"]).to(dev)
     k1, k2 = nms_kernel.nms_fixpoint(t, thr), nms_kernel.nms_mask(t, thr)
     if not torch.equal(k1, k2):
@@ -594,44 +703,74 @@ def main() -> int:
     if iou_counts["iou_matrix"] < 1 or tuple(iou_out.shape) != (1024, 25200):
         raise AssertionError("iou_matrix was not launched by its op")
 
-    # 5. times
+    # 5. times: CUDA events over back-to-back wrapper calls (the host's
+    # launch cost included), and each kernel's device time by name from
+    # torch.profiler
+    def show(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    def minus(a, b):
+        return None if a is None or b is None else a - b
+
     times = {}
-    for b in (8, 32):
+    for b in (1, 8, 32, 64):
         boxes = torch.from_numpy(class_offset_boxes(
             np.random.default_rng(b), b, 1024, 200)).to(dev)
-        times[b] = {
+        dev_ms = profiled_ms(
+            lambda: (nms_kernel.nms_fixpoint(boxes, thr),
+                     nms_kernel.nms_fixpoint_build(boxes, thr)), 20,
+            ("nms_fixpoint_kernel", "nms_fixpoint_build_kernel"))
+        whole = dev_ms["nms_fixpoint_kernel"]
+        build_only = dev_ms["nms_fixpoint_build_kernel"]
+        t = times[b] = {
             "ms": cuda_ms(lambda: nms_kernel.nms_fixpoint(boxes, thr), 50),
+            "build_ms": cuda_ms(
+                lambda: nms_kernel.nms_fixpoint_build(boxes, thr), 50),
+            "device_ms": whole, "build_device_ms": build_only,
+            "scan_device_ms": minus(whole, build_only),
             "plain_ms": cuda_ms(lambda: nms_mask_fixpoint(boxes, thr), 5,
                                 warmup=1),
             "bound": nms_bound_ms(b, 1024),
         }
-        log(f"nms_fixpoint B={b} N=1024: kernel {times[b]['ms']:.4f} ms, "
-            f"plain {times[b]['plain_ms']:.4f} ms, bound "
-            f"{times[b]['bound'][0]:.5f} ms ({times[b]['bound'][1]})")
+        log(f"nms_fixpoint B={b} N=1024: events {t['ms']:.4f} ms (build "
+            f"alone {t['build_ms']:.4f} ms) | device {show(whole)} = build "
+            f"{show(build_only)} + scan {show(t['scan_device_ms'])} | plain "
+            f"{t['plain_ms']:.4f} ms | bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]})")
 
     mask_times = {}
     for b, n in ((32, 1024), (8, 2048)):
         boxes = torch.from_numpy(class_offset_boxes(
             np.random.default_rng(n + b), b, n, n // 5)).to(dev)
-        mask_times[(b, n)] = {
+        dev_ms = profiled_ms(lambda: nms_kernel.nms_mask(boxes, thr), 20,
+                             ("nms_mask_build_kernel", "nms_mask_scan_kernel"))
+        build_dev = dev_ms["nms_mask_build_kernel"]
+        scan_dev = dev_ms["nms_mask_scan_kernel"]
+        t = mask_times[(b, n)] = {
             "ms": cuda_ms(lambda: nms_kernel.nms_mask(boxes, thr), 50),
+            "device_ms": None if build_dev is None or scan_dev is None
+            else build_dev + scan_dev,
+            "build_device_ms": build_dev, "scan_device_ms": scan_dev,
             "plain_ms": cuda_ms(lambda: nms_mask_seq(boxes, thr), 3,
                                 warmup=1),
             "bound": nms_bound_ms(b, n),
         }
-        mt = mask_times[(b, n)]
-        log(f"nms_mask B={b} N={n}: kernel {mt['ms']:.4f} ms, plain "
-            f"{mt['plain_ms']:.4f} ms, bound {mt['bound'][0]:.5f} ms "
-            f"({mt['bound'][1]})")
+        log(f"nms_mask B={b} N={n}: events {t['ms']:.4f} ms | device "
+            f"{show(t['device_ms'])} = build {show(build_dev)} + scan "
+            f"{show(scan_dev)} | plain {t['plain_ms']:.4f} ms | bound "
+            f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
 
     iou_t = {
         "ms": cuda_ms(lambda: iou_kernel.iou_matrix(a_iou, b_iou), 20),
+        "device_ms": profiled_ms(
+            lambda: iou_kernel.iou_matrix(a_iou, b_iou), 10,
+            ("iou_matrix_kernel",))["iou_matrix_kernel"],
         "plain_ms": cuda_ms(lambda: box_iou_matrix(a_iou, b_iou), 10),
         "bound": iou_bound_ms(1024, 25200),
     }
-    log(f"iou_matrix (1024, 25200): kernel {iou_t['ms']:.4f} ms, plain "
-        f"{iou_t['plain_ms']:.4f} ms, bound {iou_t['bound'][0]:.5f} ms "
-        f"({iou_t['bound'][1]})")
+    log(f"iou_matrix (1024, 25200): events {iou_t['ms']:.4f} ms | device "
+        f"{show(iou_t['device_ms'])} | plain {iou_t['plain_ms']:.4f} ms | "
+        f"bound {iou_t['bound'][0]:.5f} ms ({iou_t['bound'][1]})")
     del iou_out
 
     xb = torch.from_numpy(np.random.default_rng(2).integers(
@@ -659,6 +798,25 @@ def main() -> int:
             *cand, iou_thres=thr, score_thres=0.001, pre_nms_topk=1024,
             max_det=300), 10)
         del dec, cand
+        serve_kernels = device_kernels(lambda: step(xb), 5)
+        ev_kernels = device_kernels(
+            lambda: routes["unfused"][0]._step(xb), 3)
+
+    def busy(rows, step_ms, kernel):
+        """Device-busy ms, idle share, the NMS kernel's ms and the top six
+        kernels of one step."""
+        total = sum(ms for _, ms in rows)
+        return {"device_busy_ms": total, "idle_share": 1.0 - total / step_ms,
+                f"{kernel}_ms": sum(ms for k, ms in rows if kernel in k),
+                "top_kernels": [[k[:80], ms] for k, ms in rows[:6]]}
+
+    serve_dev = busy(serve_kernels, step_ms, "nms_fixpoint_kernel")
+    ev_dev = busy(ev_kernels, ev_step_ms, "nms_mask")
+    for label, d in (("serve", serve_dev), ("unfused eval", ev_dev)):
+        log(f"{label} step B=32 on the device (profiler): busy "
+            f"{d['device_busy_ms']:.3f} ms, idle share "
+            f"{d['idle_share']:.3f}; top kernels: " + "; ".join(
+                f"{k[:60]} {ms:.3f} ms" for k, ms in d["top_kernels"]))
     log(f"serve step B=32 640x640 bf16: {step_ms:.3f} ms/batch, "
         f"{32e3 / step_ms:.1f} img/s | forward {fwd_ms:.3f} ms, "
         f"select+decode {sel_ms:.3f} ms, nms_sorted_candidates "
@@ -669,6 +827,8 @@ def main() -> int:
 
     t32 = times[32]
     m32, m2k = mask_times[(32, 1024)], mask_times[(8, 2048)]
+    nms_keys = ("ms", "build_ms", "device_ms", "build_device_ms",
+                "scan_device_ms", "plain_ms")
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
@@ -680,10 +840,16 @@ def main() -> int:
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound"][0], "bound_by": t32["bound"][1],
         "library_ms": None, "library_note": NO_LIBRARY,
-        "ms_b8": times[8]["ms"], "plain_ms_b8": times[8]["plain_ms"],
-        "bound_ms_b8": times[8]["bound"][0],
-        "check": "exact keep masks (random, padding, 1024-deep chain, "
-                 "serve candidates)",
+        "device_ms": t32["device_ms"],
+        "build_device_ms": t32["build_device_ms"],
+        "scan_device_ms": t32["scan_device_ms"],
+        "by_batch_n1024": {
+            str(b): {**{k: t[k] for k in nms_keys if k in t},
+                     "bound_ms": t["bound"][0]} for b, t in times.items()},
+        "max_n": n_max, "clusters_at_once_n1024": clusters,
+        "check": "exact keep masks (random, padding, 1024-deep chain, B=1, "
+                 "B=64, identical, no overlap, largest N, serve "
+                 "candidates); build alone sets the plain S's bits",
     }, {
         "name": "nms_mask", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_mask.cu",
@@ -694,10 +860,14 @@ def main() -> int:
         "ms": m32["ms"], "plain_ms": m32["plain_ms"],
         "bound_ms": m32["bound"][0], "bound_by": m32["bound"][1],
         "library_ms": None, "library_note": NO_LIBRARY,
-        "ms_b8_n2048": m2k["ms"], "plain_ms_b8_n2048": m2k["plain_ms"],
-        "bound_ms_b8_n2048": m2k["bound"][0],
+        "device_ms": m32["device_ms"],
+        "build_device_ms": m32["build_device_ms"],
+        "scan_device_ms": m32["scan_device_ms"],
+        "b8_n2048": {**{k: m2k[k] for k in nms_keys if k in m2k},
+                     "bound_ms": m2k["bound"][0]},
         "check": "exact keep masks (random, padding, 1024-deep chain, "
-                 "N=2048, equal to nms_fixpoint, eval candidates)",
+                 "identical, no overlap, N=2048, equal to nms_fixpoint, "
+                 "eval candidates)",
     }, {
         "name": "iou_matrix", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/iou_matrix.cu",
@@ -708,19 +878,22 @@ def main() -> int:
         "ms": iou_t["ms"], "plain_ms": iou_t["plain_ms"],
         "bound_ms": iou_t["bound"][0], "bound_by": iou_t["bound"][1],
         "library_ms": None, "library_note": NO_LIBRARY,
+        "device_ms": iou_t["device_ms"],
         "check": "within 1 ulp of box_iou_matrix (1024x8192, ragged "
                  "1000x25200 with zero-area rows)",
     }]
     serve = {"serve_ms_per_batch_b32": step_ms,
              "serve_img_per_s_b32": 32e3 / step_ms,
              "forward_ms_b32": fwd_ms, "select_decode_ms_b32": sel_ms,
-             "nms_sorted_candidates_ms_b32": nms_ms}
+             "nms_sorted_candidates_ms_b32": nms_ms,
+             "device_b32": serve_dev}
     evals = {f"{name}_{key}": eval_stats[name][key]
              for name in routes for key in ("images_per_sec", "AP", "AP50")}
     evals.update({f"{name}_images_per_sec_runs": eval_rates[name]
                   for name in routes})
     evals.update({"host_pin_ms_b32": pin_ms, "host_accumulate_ms_b32": acc_ms,
                   "unfused_step_ms_b32": ev_step_ms,
+                  "unfused_device_b32": ev_dev,
                   "unfused_forward_decode_ms_b32": fd_ms,
                   "unfused_multilabel_ms_b32": ml_ms,
                   "unfused_batched_nms_ms_b32": bn_ms,

@@ -3,21 +3,23 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_build/<name>-<hash>.so`` (route (b): nvcc by hand, loaded with
 ctypes; seconds per source, against minutes for an extension that includes
-PyTorch's headers). The hash covers the source and the flags, so an edited
-source builds anew. Nothing builds at import time: a library is built the
-first time a wrapper asks for it, or all at once, in parallel, through
-:func:`build_all`.
+PyTorch's headers). The hash covers the source, the ``csrc/`` headers it
+includes (``#include "..."``, followed through headers too) and the flags,
+so an edited source or header builds anew. Nothing builds at import time:
+a library is built the first time a wrapper asks for it, or all at once,
+in parallel, through :func:`build_all`.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,11 +45,30 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first reached."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc
+                 for inc in _LOCAL_INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:

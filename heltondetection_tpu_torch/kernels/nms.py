@@ -5,6 +5,10 @@
   PyTorch version ``ops.nms.nms_mask_fixpoint``.
 * ``nms_mask`` (``csrc/nms_mask.cu``), counterpart of ``nms_mask_pallas``;
   plain PyTorch version ``ops.nms.nms_mask_seq``.
+
+Both share the register-resident greedy scan of ``csrc/nms_scan.cuh``.
+What a kernel needs of the device (shared memory, cluster residency, launch
+attributes) is checked and set once per device and N, not per launch.
 """
 
 from __future__ import annotations
@@ -16,6 +20,9 @@ import torch
 from heltondetection_tpu_torch.kernels import build, launch_counts
 
 _libs = {}
+# (kernel, device index, N) checked and prepared -> for nms_fixpoint, how
+# many clusters the device holds at once
+_ready = {}
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -24,17 +31,23 @@ def _load(name: str) -> ctypes.CDLL:
     if name in _libs:
         return _libs[name]
     lib = ctypes.CDLL(str(build.library(name)))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    launch = getattr(lib, f"{name}_launch")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "nms_fixpoint":
-        launch.argtypes = [ptr, ptr, i32, i32, ctypes.c_float, ptr]
+        lib.nms_fixpoint_launch.argtypes = [ptr, ptr, i32, i32, f32, ptr]
+        lib.nms_fixpoint_build_launch.argtypes = [ptr, ptr, i32, i32, f32,
+                                                  ptr]
+        lib.nms_fixpoint_build_launch.restype = i32
+        lib.nms_fixpoint_prepare.argtypes = [i32, i32]
+        lib.nms_fixpoint_prepare.restype = i32
+        lib.nms_fixpoint_smem_bytes.argtypes = [i32]
+        lib.nms_fixpoint_smem_bytes.restype = ctypes.c_longlong
+        lib.nms_fixpoint_smem_limit.argtypes = [i32]
+        lib.nms_fixpoint_smem_limit.restype = ctypes.c_longlong
     else:
-        launch.argtypes = [ptr, ptr, ptr, i32, i32, ctypes.c_float, ptr]
-    launch.restype = i32
-    getattr(lib, f"{name}_smem_bytes").argtypes = [i32]
-    getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
-    getattr(lib, f"{name}_smem_limit").argtypes = [i32]
-    getattr(lib, f"{name}_smem_limit").restype = ctypes.c_longlong
+        lib.nms_mask_launch.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
+        lib.nms_mask_max_n.argtypes = []
+        lib.nms_mask_max_n.restype = ctypes.c_longlong
+    getattr(lib, f"{name}_launch").restype = i32
     getattr(lib, f"{name}_error_string").argtypes = [i32]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     _libs[name] = lib
@@ -57,12 +70,15 @@ def _check_boxes(name: str, boxes: torch.Tensor, multiple: int) -> None:
                          f"{multiple}, got B={b} N={n}")
 
 
-def _check_smem(name: str, lib: ctypes.CDLL, n: int, dev) -> None:
-    need = getattr(lib, f"{name}_smem_bytes")(n)
-    limit = getattr(lib, f"{name}_smem_limit")(dev.index)
+def _check_smem(lib: ctypes.CDLL, n: int, dev) -> None:
+    """Each block of an image's cluster holds all N boxes and N/4 rows of
+    the bitmask; raise unless that fits one block's shared memory."""
+    need = lib.nms_fixpoint_smem_bytes(n)
+    limit = lib.nms_fixpoint_smem_limit(dev.index)
     if need > limit:
-        raise ValueError(f"{name} at N={n} needs {need} bytes of shared "
-                         f"memory; the device allows {limit}")
+        raise ValueError(f"nms_fixpoint at N={n} needs {need} bytes of "
+                         f"shared memory per block; the device allows "
+                         f"{limit}")
 
 
 def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
@@ -71,17 +87,61 @@ def _raise_on(name: str, lib: ctypes.CDLL, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
+def _prepare(name: str, lib: ctypes.CDLL, n: int, dev) -> None:
+    """Check once per (device, N) that the kernel can run at N, and set its
+    launch attributes; raise if it cannot."""
+    key = (name, dev.index, n)
+    if key in _ready:
+        return
+    clusters = None
+    if name == "nms_fixpoint":
+        _check_smem(lib, n, dev)
+        clusters = lib.nms_fixpoint_prepare(dev.index, n)
+        if clusters < 0:
+            _raise_on(name, lib, -clusters)
+        if clusters == 0:
+            raise RuntimeError(f"nms_fixpoint at N={n}: the device cannot "
+                               f"hold one cluster of its blocks at once")
+    elif n > lib.nms_mask_max_n():
+        raise ValueError(f"nms_mask takes N up to {lib.nms_mask_max_n()}, "
+                         f"got N={n}")
+    _ready[key] = clusters
+
+
+def nms_fixpoint_max_n(device) -> int:
+    """Largest N (a multiple of 32) whose per-block share of the bitmask
+    fits a block's shared memory on ``device`` (2400 on an H100)."""
+    lib = _load("nms_fixpoint")
+    index = torch.device(device).index or 0
+    limit = lib.nms_fixpoint_smem_limit(index)
+    n = 32
+    while lib.nms_fixpoint_smem_bytes(n + 32) <= limit:
+        n += 32
+    return n
+
+
+def nms_fixpoint_clusters(device, n: int) -> int:
+    """How many images :func:`nms_fixpoint` runs at once at N on
+    ``device`` (one cluster of four blocks each, in one GPC); a larger
+    batch runs in waves."""
+    dev = torch.device("cuda", torch.device(device).index or 0)
+    with torch.cuda.device(dev):
+        _prepare("nms_fixpoint", _load("nms_fixpoint"), n, dev)
+    return _ready[("nms_fixpoint", dev.index, n)]
+
+
 def nms_fixpoint(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Keep mask (B, N) bool of score-sorted, class-offset boxes (B, N, 4)
-    f32 on a CUDA device. N must be a positive multiple of 32 and the
-    block's bitmask must fit in shared memory (N ≤ 1280 on an H100).
-    Anything else raises; there is no other variant."""
+    f32 on a CUDA device, one cluster of four blocks per image. N must be a
+    positive multiple of 32 and each block's quarter of the bitmask must
+    fit its shared memory (N ≤ 2400 on an H100). Anything else raises;
+    there is no other variant."""
     _check_boxes("nms_fixpoint", boxes, 32)
     b, n, _ = boxes.shape
     lib = _load("nms_fixpoint")
     dev = boxes.device
     with torch.cuda.device(dev):
-        _check_smem("nms_fixpoint", lib, n, dev)
+        _prepare("nms_fixpoint", lib, n, dev)
         keep = torch.empty((b, n), dtype=torch.bool, device=dev)
         err = lib.nms_fixpoint_launch(
             boxes.data_ptr(), keep.data_ptr(), b, n, float(iou_thres),
@@ -91,17 +151,36 @@ def nms_fixpoint(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     return keep
 
 
+def nms_fixpoint_build(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The bitmask build of :func:`nms_fixpoint` alone, for timing the build
+    and the scan apart: returns the number of bits set in each image's
+    suppression matrix (B,) int32, and no keep mask. No path calls it, and
+    it adds nothing to ``launch_counts``."""
+    _check_boxes("nms_fixpoint", boxes, 32)
+    b, n, _ = boxes.shape
+    lib = _load("nms_fixpoint")
+    dev = boxes.device
+    with torch.cuda.device(dev):
+        _prepare("nms_fixpoint", lib, n, dev)
+        bits = torch.zeros((b,), dtype=torch.int32, device=dev)
+        err = lib.nms_fixpoint_build_launch(
+            boxes.data_ptr(), bits.data_ptr(), b, n, float(iou_thres),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("nms_fixpoint", lib, err)
+    return bits
+
+
 def nms_mask(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Keep mask (B, N) bool of score-sorted, class-offset boxes (B, N, 4)
-    f32 on a CUDA device, N a positive multiple of 64, any size the
-    (B, N, N/64) uint64 scratch bitmask allows (N²/8 bytes per image).
+    f32 on a CUDA device, N a positive multiple of 64 up to 16384, through
+    a (B, N, N/64) uint64 scratch bitmask (N²/8 bytes per image).
     Anything else raises; there is no other variant."""
     _check_boxes("nms_mask", boxes, 64)
     b, n, _ = boxes.shape
     lib = _load("nms_mask")
     dev = boxes.device
     with torch.cuda.device(dev):
-        _check_smem("nms_mask", lib, n, dev)
+        _prepare("nms_mask", lib, n, dev)
         scratch = torch.empty((b, n, n // 64), dtype=torch.int64, device=dev)
         keep = torch.empty((b, n), dtype=torch.bool, device=dev)
         err = lib.nms_mask_launch(
