@@ -19,10 +19,14 @@ fails:
      more word must raise), with its build alone holding as many bits as
      the plain suppression matrix; nms_mask also at N=2048, and the two
      kernels against each other on one input;
-   - iou_matrix within 1 ulp (bit equality is expected) at (1024, 8192) and
-     at a ragged (1000, 25200) whose zero-area rows must give exact zeros;
+   - iou_matrix within 1 ulp (bit equality is expected), both of its
+     stores: the float4 store (M a multiple of 4) at (1024, 8192), at a
+     ragged (1000, 25200) whose zero-area rows must give exact zeros, at
+     N = 1 and at the tall narrow (65536, 128); the float store at
+     M % 4 = 1, 2 and 3 ((1000, 25201), (63, 130), (257, 1023)) and M = 1;
+     N not a multiple of the 16-row tile in most of them;
 4. the main path, a full-width YOLOv5s (80 classes, 640², bf16, random
-   weights from seed 0), driven through three paths, each with the launch
+   weights from seed 0), driven through four paths, each with the launch
    counts reset just before and read just after:
    a. serve: six frames of mixed sizes in two requests through
       make_packed_serve_step + Detector; nms_fixpoint must launch. The dets
@@ -42,23 +46,41 @@ fails:
    c. iou: the public op ops.boxes.iou_matrix at (1024, 25200); iou_matrix
       must launch (the kernel has no caller in the reference package but
       its tests, so its op is its path);
+   d. serving: the seed-0 weights are written with save_eval_variables
+      beside a config file in a temporary directory. load_detector(config
+      file, ckpt=dir) must give the dets of a Detector built by hand from
+      the same weights and settings on phase 4a's frames.
+      load_detector(..., tta=True) on 8 frames of mixed sizes must launch
+      nms_fixpoint three times (one per view), its dets finite and inside
+      their frames, and the fusion on the card must equal
+      weighted_boxes_fusion on CPU copies of the views' dets (boxes within
+      1e-3 px, scores within 1e-6, classes and valid exactly).
+      BatchingDetector(batch_size=16, batch_buckets=(4, 16)) after
+      warmup(): 8 client threads send 16 frames each through submit, every
+      future must resolve within a timeout to exactly what
+      Detector.detect_batch gives that frame at one of the two bucket
+      sizes; the stats must add up, nms_fixpoint must launch once per
+      batch, close() must return True. The HTTP front end answers
+      /healthz (no image decoder is promised on the card's machine);
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
    kernel's bound: nms_fixpoint at B=1, 8, 32 and 64 N=1024, with its build
    timed alone (a build-only instance), so scan = whole - build; nms_mask
    at B=32 N=1024 and B=8 N=2048, its build and scan kernels read apart by
-   name; iou_matrix at (1024, 25200). Then the serve step at B=32 with its
+   name; iou_matrix at (1024, 25200) and (65536, 128). Then the serve step at B=32 with its
    breakdown, the unfused eval step's breakdown (CUDA events around each
    part, and the profiler's device-busy time, idle share and top kernels
    of each step), and eval images/s (host accumulate included) on both
-   routes at B=32. No single PyTorch call
+   routes at B=32; TTA per batch of 8 and of 32 with WBF's share (CUDA
+   events and the host clock), and the BatchingDetector's img/s, mean
+   fill and request latency at 8 clients. No single PyTorch call
    computes greedy NMS or a pairwise IoU matrix (there is no torchvision),
    so library_ms is null for every kernel.
 
-The two lines before the last are the kernels line, {"kernels": [...]},
-and the card's nvidia-smi line; the last line is {"ok": true, "device":
-{...}}.
+The lines before the last are the serve, eval and serving lines, the
+kernels line, {"kernels": [...]}, and the card's nvidia-smi line; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -191,6 +213,19 @@ def device_kernels(fn, iters: int) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def device_busy_ms(fn) -> float:
+    """Device ms of everything one call of fn() runs on the card, from a
+    CUDA-only torch.profiler trace (no host events: cheap enough for a call
+    of tens of thousands of launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.device_time_total for evt in prof.key_averages()) / 1e3
+
+
 def nms_bound_ms(b: int, n: int) -> tuple:
     """Least time for the keep mask of (b, n, 4) boxes: bytes (boxes read,
     mask written) over HBM rate, pairwise tests over the f32 rate."""
@@ -282,6 +317,79 @@ def eval_batches(rng, n_frames, batch, img_size, letterbox_np):
     return batches, gts
 
 
+SMOKE_CONFIG = """\
+from heltondetection_tpu_torch.configs.base import (ExperimentConfig,
+                                                    ModelConfig, TestConfig)
+
+config = ExperimentConfig(
+    name="chip_smoke",
+    model=ModelConfig(family="yolov5", variant="s", num_classes=80,
+                      img_size=640, dtype="bfloat16"),
+    test=TestConfig(conf_thres=0.001, iou_thres=0.65))
+"""
+
+
+def check_dets(frame, dets, num_classes=80) -> int:
+    """Dets of one frame are finite, inside it and in range; returns their
+    count."""
+    boxes, scores, classes = dets
+    h, w = frame.shape[:2]
+    if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
+        raise AssertionError("non-finite dets")
+    if ((boxes[:, [0, 2]] < 0).any() or (boxes[:, [0, 2]] > w).any()
+            or (boxes[:, [1, 3]] < 0).any() or (boxes[:, [1, 3]] > h).any()):
+        raise AssertionError("dets outside their frame")
+    if ((scores <= 0) | (scores > 1)).any() or \
+            ((classes < 0) | (classes >= num_classes)).any():
+        raise AssertionError("scores or classes out of range")
+    return len(scores)
+
+
+def same_dets(a, b) -> bool:
+    return all(x.shape == y.shape and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def client_load(batcher, frames, n_clients, per_client, timeout=120.0):
+    """n_clients threads, each sending per_client frames one after the
+    other through submit and waiting for each answer. Returns
+    ([(frame index, dets)], [latency s], wall s); a request that does not
+    resolve within the timeout fails the run."""
+    import threading
+    results, latencies, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            for j in range(per_client):
+                idx = (k * per_client + j) % len(frames)
+                t0 = time.perf_counter()
+                dets = batcher.submit(frames[idx]).result(timeout=timeout)
+                dt = time.perf_counter() - t0
+                with lock:
+                    results.append((idx, dets))
+                    latencies.append(dt)
+        except Exception as e:              # raised again by the caller
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout * per_client)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or \
+            len(results) != n_clients * per_client:
+        raise AssertionError(f"only {len(results)} of "
+                             f"{n_clients * per_client} requests resolved")
+    return results, latencies, wall
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -299,7 +407,10 @@ def main() -> int:
     from heltondetection_tpu_torch.engine.evaluator import (
         Evaluator, make_packed_serve_step, multilabel_candidates)
     from heltondetection_tpu_torch.engine.infer import Detector
-    from heltondetection_tpu_torch.engine.runner import forward_for_eval
+    from heltondetection_tpu_torch.engine.runner import (forward_for_eval,
+                                                         load_detector)
+    from heltondetection_tpu_torch.engine.serve import (BatchingDetector,
+                                                        make_http_server)
     from heltondetection_tpu_torch.kernels import (KERNELS, build,
                                                    launch_counts,
                                                    reset_launch_counts)
@@ -316,6 +427,8 @@ def main() -> int:
                                                    suppression_matrix)
     from heltondetection_tpu_torch.ops.postprocess import (
         _MAX_WH, fused_select_decode_packed, nms_sorted_candidates)
+    from heltondetection_tpu_torch.ops.wbf import weighted_boxes_fusion
+    from heltondetection_tpu_torch.utils.ckpt import save_eval_variables
     from heltondetection_tpu_torch.utils.cocoeval import DetEval
 
     torch.backends.cudnn.allow_tf32 = False
@@ -441,11 +554,12 @@ def main() -> int:
                              "input")
     log("nms_mask == nms_fixpoint on the random B=8 N=1024 input")
 
-    # 3c. iou_matrix vs plain, within 1 ulp
+    # 3c. iou_matrix vs plain, within 1 ulp, both stores
     iou_ulp, iou_err = 0, 0.0
-    for label, (n, m, n_zero) in {"(1024, 8192)": (1024, 8192, 0),
-                                  "ragged (1000, 25200), 37 zero-area rows":
-                                      (1000, 25200, 37)}.items():
+    iou_stores = set()
+    for n, m, n_zero in ((1024, 8192, 0), (1000, 25200, 37),
+                         (1000, 25201, 37), (63, 130, 5), (257, 1023, 0),
+                         (1, 25200, 0), (1024, 1, 0), (65536, 128, 100)):
         a = torch.from_numpy(sorted_boxes(rng, 1, n)[0]).to(dev)
         b = torch.from_numpy(sorted_boxes(rng, 1, m)[0]).to(dev)
         zero_rows = torch.arange(n_zero, device=dev) * 7
@@ -457,14 +571,21 @@ def main() -> int:
         err = float((got - want).abs().max())
         n_diff = int((got != want).sum())
         iou_ulp, iou_err = max(iou_ulp, ulp), max(iou_err, err)
-        log(f"iou_matrix vs plain [{label}]: {n_diff} of {got.numel()} "
-            f"differ, max {ulp} ulp, max abs err {err:.3g}")
-        if ulp > 1:
+        store = "float4" if m % 4 == 0 else "float"
+        iou_stores.add(store)
+        log(f"iou_matrix vs plain [({n}, {m}), {store} store, {n_zero} "
+            f"zero-area rows]: {n_diff} of {got.numel()} differ, max {ulp} "
+            f"ulp, max abs err {err:.3g}")
+        if tuple(got.shape) != (n, m) or ulp > 1:
             raise AssertionError(f"iou_matrix is {ulp} ulp from the plain "
-                                 f"version [{label}]")
+                                 f"version at ({n}, {m})")
         if n_zero and bool((got[zero_rows] != 0).any()):
             raise AssertionError("zero-area rows gave non-zero IoU")
+        del got, want
+    if iou_stores != {"float4", "float"}:
+        raise AssertionError(f"iou_matrix stores exercised: {iou_stores}")
 
+    log(f"[phases 1-3 done at {time.perf_counter() - t_start:.1f} s]")
     # 4a. the serve path
     t0 = time.perf_counter()
     model = build_yolov5("s", 80, dtype=torch.bfloat16, device=dev,
@@ -493,20 +614,10 @@ def main() -> int:
                              "path")
     n_dets = 0
     for req, ans in zip(requests, answers):
-        for frame, (boxes, scores, classes) in zip(req, ans):
-            h, w = frame.shape[:2]
-            if not (np.isfinite(boxes).all() and np.isfinite(scores).all()):
-                raise AssertionError("non-finite dets")
-            if len(scores) == 0:
+        for frame, dets in zip(req, ans):
+            if check_dets(frame, dets) == 0:
                 raise AssertionError("a frame got no dets")
-            if ((boxes[:, [0, 2]] < 0).any() or (boxes[:, [0, 2]] > w).any()
-                    or (boxes[:, [1, 3]] < 0).any()
-                    or (boxes[:, [1, 3]] > h).any()):
-                raise AssertionError("dets outside their frame")
-            if ((scores <= 0) | (scores > 1)).any() or \
-                    ((classes < 0) | (classes >= 80)).any():
-                raise AssertionError("scores or classes out of range")
-            n_dets += len(scores)
+            n_dets += len(dets[1])
     log(f"dets: {n_dets} over {sum(map(len, requests))} frames, finite and "
         f"inside their frames")
 
@@ -546,6 +657,12 @@ def main() -> int:
         raise AssertionError("the serve step's dets differ from the plain "
                              "NMS dets on the same frames")
 
+    # the serve step at B=32 now, before the other paths run: phase 5 times
+    # it again after them, and the two are printed side by side
+    xb = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (32, 640, 640, 3)).astype(np.uint8)).to(dev)
+    step_ms_early = cuda_ms(lambda: step(xb), 10)
+
     # f32 network on the card vs on the CPU, small input, TF32 off
     model32 = build_yolov5("s", 80, device="cpu",
                            generator=torch.Generator().manual_seed(0))
@@ -562,6 +679,7 @@ def main() -> int:
         raise AssertionError("f32 network on the card disagrees with the CPU")
     del model32, got, ref
 
+    log(f"[phase 4a done at {time.perf_counter() - t_start:.1f} s]")
     # 4b. the eval path, both routes
     t0 = time.perf_counter()
     batches, gts = eval_batches(np.random.default_rng(2), 64, 32, 640,
@@ -691,6 +809,7 @@ def main() -> int:
             raise AssertionError(f"painted gt [{label}]: AP {stats['AP']} "
                                  f"or no nms_mask launch")
 
+    log(f"[phase 4b done at {time.perf_counter() - t_start:.1f} s]")
     # 4c. the iou op's path
     a_iou = torch.from_numpy(sorted_boxes(rng, 1, 1024)[0]).to(dev)
     b_iou = torch.from_numpy(sorted_boxes(rng, 1, 25200)[0]).to(dev)
@@ -703,6 +822,151 @@ def main() -> int:
     if iou_counts["iou_matrix"] < 1 or tuple(iou_out.shape) != (1024, 25200):
         raise AssertionError("iou_matrix was not launched by its op")
 
+    log(f"[phase 4c done at {time.perf_counter() - t_start:.1f} s]")
+    # 4d. the serving surface: load_detector, TTA/WBF, BatchingDetector
+    import tempfile
+    import threading
+    import urllib.request
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        save_eval_variables(ckpt_dir, model.state_dict(), 0)
+        cfg_path = os.path.join(tmp, "chip_smoke_cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(SMOKE_CONFIG)
+        loaded = load_detector(cfg_path, ckpt=ckpt_dir)
+        tta_det = load_detector(cfg_path, ckpt=ckpt_dir, tta=True)
+    if loaded.device != dev or tta_det.device != dev:
+        raise AssertionError(f"load_detector chose {loaded.device}")
+    by_hand = Detector(make_packed_serve_step(
+        model, 80, conf_thres=0.001, iou_thres=thr, max_det=300,
+        multi_label=False, device=dev), 80, 640, device=dev)
+    frames6 = [f for req in requests for f in req]
+    loaded.detect_batch(frames6)                  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got6 = loaded.detect_batch(frames6)
+    torch.cuda.synchronize()
+    load_counts = dict(launch_counts)
+    want6 = by_hand.detect_batch(frames6)
+    n_loaded = sum(check_dets(f, d) for f, d in zip(frames6, got6))
+    log(f"load_detector(config file, ckpt dir): {n_loaded} dets over "
+        f"{len(frames6)} frames, launches {load_counts}")
+    if load_counts["nms_fixpoint"] != 1 or n_loaded == 0:
+        raise AssertionError("load_detector's path did not launch "
+                             "nms_fixpoint once, or found nothing")
+    if not all(same_dets(g, w) for g, w in zip(got6, want6)):
+        raise AssertionError("load_detector's dets differ from the "
+                             "hand-built Detector's on the same weights")
+    log("load_detector's dets == the hand-built Detector's, exactly")
+
+    tta_sizes = [(480, 640), (720, 1280), (640, 640), (375, 500),
+                 (1080, 1920), (640, 427), (512, 512), (300, 400)]
+    frames8 = [frame_rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+               for hw in tta_sizes]
+    tta_det.detect_batch(frames8)                 # warm-up: both sizes
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fused8 = tta_det.detect_batch(frames8)
+    torch.cuda.synchronize()
+    tta_counts = dict(launch_counts)
+    n_fused = sum(check_dets(f, d) for f, d in zip(frames8, fused8))
+    with torch.inference_mode():
+        x8, metas8 = tta_det._letterbox(frames8, 640)
+        views = tta_det._view_dets(frames8, x8, metas8)
+        cat = [torch.cat([v[k] for v in views], 1) for k in range(4)]
+        wbf_kw = dict(n_views=3, iou_thres=tta_det.wbf_iou, max_out=300)
+        on_card = [t.cpu() for t in weighted_boxes_fusion(*cat, **wbf_kw)]
+        on_cpu = weighted_boxes_fusion(*(t.cpu() for t in cat), **wbf_kw)
+    wbf_box_err = float((on_card[0] - on_cpu[0]).abs().max())
+    wbf_score_err = float((on_card[1] - on_cpu[1]).abs().max())
+    n_cand = int(cat[3].sum())
+    log(f"TTA path: 8 frames, 3 views, launches {tta_counts}; {n_cand} "
+        f"candidates of {cat[3].numel()} valid → {n_fused} fused dets; WBF "
+        f"card vs CPU: boxes {wbf_box_err:.3g} px, scores "
+        f"{wbf_score_err:.3g}, classes equal "
+        f"{torch.equal(on_card[2], on_cpu[2])}, valid equal "
+        f"{torch.equal(on_card[3], on_cpu[3])}")
+    if tta_counts["nms_fixpoint"] != 3:
+        raise AssertionError(f"TTA launched nms_fixpoint "
+                             f"{tta_counts['nms_fixpoint']} times, not 3")
+    if tuple(cat[0].shape) != (8, 900, 4) or n_fused == 0:
+        raise AssertionError("TTA views are not (8, 900, 4), or nothing "
+                             "was fused")
+    if not (wbf_box_err <= 1e-3 and wbf_score_err <= 1e-6
+            and torch.equal(on_card[2], on_cpu[2])
+            and torch.equal(on_card[3], on_cpu[3])):
+        raise AssertionError("WBF on the card differs from WBF on the CPU")
+    if int(on_card[3].sum()) != n_fused:
+        raise AssertionError("detect_batch's fused dets are not the "
+                             "fusion of the views")
+
+    pool = frames8 + frames6 + [frames8[0][::-1].copy(),
+                                frames8[2][:, ::-1].copy()]     # 16 frames
+
+    def alone_at(frame, bucket):
+        """What detect_batch([frame] * bucket)[0] gives, the frame
+        letterboxed once."""
+        x1, metas1 = loaded._letterbox([frame], 640)
+        out = [t[0].cpu().numpy() for t in loaded._detect(
+            x1.expand(bucket, -1, -1, -1).contiguous())]
+        return loaded._to_source(*out, metas1[0], frame.shape[:2])
+
+    if not same_dets(alone_at(pool[1], 4), loaded.detect_batch(
+            [pool[1]] * 4)[0]):
+        raise AssertionError("alone_at is not detect_batch of copies")
+    refs = {b: [alone_at(f, b) for f in pool] for b in (4, 16)}
+    n_bucket_differs = sum(not same_dets(a, b)
+                           for a, b in zip(refs[4], refs[16]))
+    batcher = BatchingDetector(loaded, batch_size=16, batch_buckets=(4, 16))
+    try:
+        batcher.warmup()
+        batcher.reset_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        results, latencies, load_wall = client_load(batcher, pool, 8, 16)
+        torch.cuda.synchronize()
+        batch_counts = dict(launch_counts)
+        stats = batcher.stats()
+        srv = make_http_server(batcher, host="127.0.0.1", port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.server_address[1]}/healthz",
+                    timeout=30) as r:
+                healthz = json.loads(r.read())
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=10)
+    finally:
+        closed = batcher.close(timeout=60.0)
+    at_bucket = {4: 0, 16: 0}
+    for idx, dets in results:
+        check_dets(pool[idx], dets)
+        hit = [b for b in (4, 16) if same_dets(dets, refs[b][idx])]
+        if not hit:
+            raise AssertionError(f"a batched request's dets equal neither "
+                                 f"bucket's Detector.detect_batch (frame "
+                                 f"{idx})")
+        at_bucket[hit[0]] += 1
+    fill = stats["requests"] / max(stats["dispatched_slots"], 1)
+    lat = np.sort(np.asarray(latencies)) * 1e3
+    log(f"BatchingDetector: 8 clients x 16 frames, all 128 resolved, each "
+        f"equal to Detector.detect_batch at a bucket size ({at_bucket}; "
+        f"{n_bucket_differs} of 16 frames differ between the buckets); "
+        f"stats {stats}, launches {batch_counts}, healthz {healthz}, "
+        f"close() {closed}")
+    if stats["requests"] != 128 or \
+            stats["dispatched_slots"] - stats["padded_slots"] != 128:
+        raise AssertionError(f"BatchingDetector stats do not add up: {stats}")
+    if batch_counts["nms_fixpoint"] != stats["batches"]:
+        raise AssertionError("nms_fixpoint did not launch once per batch")
+    if not closed or healthz.get("ok") is not True or \
+            healthz.get("requests") != 128:
+        raise AssertionError(f"close() {closed}, healthz {healthz}")
+
+    log(f"[phase 4d done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -760,21 +1024,29 @@ def main() -> int:
             f"{show(scan_dev)} | plain {t['plain_ms']:.4f} ms | bound "
             f"{t['bound'][0]:.5f} ms ({t['bound'][1]})")
 
-    iou_t = {
-        "ms": cuda_ms(lambda: iou_kernel.iou_matrix(a_iou, b_iou), 20),
-        "device_ms": profiled_ms(
-            lambda: iou_kernel.iou_matrix(a_iou, b_iou), 10,
-            ("iou_matrix_kernel",))["iou_matrix_kernel"],
-        "plain_ms": cuda_ms(lambda: box_iou_matrix(a_iou, b_iou), 10),
-        "bound": iou_bound_ms(1024, 25200),
-    }
-    log(f"iou_matrix (1024, 25200): events {iou_t['ms']:.4f} ms | device "
-        f"{show(iou_t['device_ms'])} | plain {iou_t['plain_ms']:.4f} ms | "
-        f"bound {iou_t['bound'][0]:.5f} ms ({iou_t['bound'][1]})")
     del iou_out
+    iou_times = {}
+    for n, m in ((1024, 25200), (65536, 128)):
+        ia = torch.from_numpy(sorted_boxes(rng, 1, n)[0]).to(dev)
+        ib = torch.from_numpy(sorted_boxes(rng, 1, m)[0]).to(dev)
+        t = iou_times[(n, m)] = {
+            "ms": cuda_ms(lambda: iou_kernel.iou_matrix(ia, ib), 20),
+            "device_ms": profiled_ms(
+                lambda: iou_kernel.iou_matrix(ia, ib), 10,
+                ("iou_matrix_kernel",))["iou_matrix_kernel"],
+            "plain_ms": cuda_ms(lambda: box_iou_matrix(ia, ib), 10),
+            "bound": iou_bound_ms(n, m),
+        }
+        log(f"iou_matrix ({n}, {m}): events {t['ms']:.4f} ms | device "
+            f"{show(t['device_ms'])} | plain {t['plain_ms']:.4f} ms | "
+            f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+        del ia, ib
+    iou_t, iou_tall = iou_times[(1024, 25200)], iou_times[(65536, 128)]
 
-    xb = torch.from_numpy(np.random.default_rng(2).integers(
-        0, 256, (32, 640, 640, 3)).astype(np.uint8)).to(dev)
+    probe = torch.zeros((8, 900), device=dev)
+    launch_us = cuda_ms(lambda: probe.add_(1.0), 2000, warmup=100) * 1e3
+    log(f"eager launch floor: {launch_us:.2f} us per back-to-back "
+        f"elementwise launch on a (8, 900) tensor")
     with torch.inference_mode():
         step_ms = cuda_ms(lambda: step(xb), 10)
         xf = xb.float() / 255.0
@@ -802,6 +1074,67 @@ def main() -> int:
         ev_kernels = device_kernels(
             lambda: routes["unfused"][0]._step(xb), 3)
 
+    log(f"[phase 5 kernels and steps done at {time.perf_counter() - t_start:.1f} s]")
+    # TTA per batch of 8 and of 32 (the 8 frames four times): the whole
+    # detect_batch by the host clock, the three views and the fusion apart
+    # by CUDA events (the rescaled view's host letterbox falls in "views")
+    tta_times = {}
+    for frames_b in (frames8, frames8 * 4):
+        nb_ = len(frames_b)
+        tta_det.detect_batch(frames_b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            tta_det.detect_batch(frames_b)
+        whole_ms = (time.perf_counter() - t0) * 1e3 / 2
+        with torch.inference_mode():
+            xb_, metas_ = tta_det._letterbox(frames_b, 640)
+            views_ms = cuda_ms(
+                lambda: tta_det._view_dets(frames_b, xb_, metas_), 2,
+                warmup=1)
+            views_ = tta_det._view_dets(frames_b, xb_, metas_)
+            cat_ = [torch.cat([v[k] for v in views_], 1) for k in range(4)]
+            wbf_ms = cuda_ms(lambda: weighted_boxes_fusion(*cat_, **wbf_kw),
+                             2, warmup=1)
+            wbf_dev = device_busy_ms(
+                lambda: weighted_boxes_fusion(*cat_, **wbf_kw))
+        tta_times[nb_] = {
+            "detect_batch_ms": whole_ms, "views_ms": views_ms,
+            "wbf_ms": wbf_ms, "wbf_share": wbf_ms / whole_ms,
+            "wbf_device_busy_ms": wbf_dev,
+            "wbf_steps": int(cat_[3].sum(-1).max()),
+        }
+        t = tta_times[nb_]
+        log(f"TTA B={nb_} 640x640 bf16, 3 views: detect_batch "
+            f"{whole_ms:.3f} ms (host clock, letterboxes included) | views "
+            f"{views_ms:.3f} ms | WBF {wbf_ms:.3f} ms ({t['wbf_steps']} "
+            f"steps; device busy {wbf_dev:.3f} ms of it), "
+            f"{t['wbf_share']:.3f} of the whole")
+        del xb_, views_, cat_
+    serving = {
+        "tta": {str(k): v for k, v in tta_times.items()},
+        "batching": {
+            "clients": 8, "requests": 128, "batch_size": 16,
+            "batch_buckets": [4, 16], "img_per_s": 128 / load_wall,
+            "wall_s": load_wall, "mean_fill": fill,
+            "batches": stats["batches"],
+            "latency_ms_p50": float(lat[len(lat) // 2]),
+            "latency_ms_p99": float(lat[min(len(lat) - 1,
+                                            int(len(lat) * 0.99))]),
+            "latency_ms_max": float(lat[-1]),
+            "answers_at_bucket": {str(k): v for k, v in at_bucket.items()},
+            "frames_differing_between_buckets": n_bucket_differs,
+        },
+        "wbf_card_vs_cpu": {"box_err_px": wbf_box_err,
+                            "score_err": wbf_score_err},
+    }
+    bt = serving["batching"]
+    log(f"BatchingDetector, 8 closed-loop clients, mixed-size frames "
+        f"letterboxed on the client threads: {bt['img_per_s']:.1f} img/s, "
+        f"mean fill {fill:.3f} over {bt['batches']} batches, latency p50 "
+        f"{bt['latency_ms_p50']:.2f} ms, p99 {bt['latency_ms_p99']:.2f} ms")
+
+    log(f"[phase 5 TTA done at {time.perf_counter() - t_start:.1f} s]")
     def busy(rows, step_ms, kernel):
         """Device-busy ms, idle share, the NMS kernel's ms and the top six
         kernels of one step."""
@@ -817,7 +1150,8 @@ def main() -> int:
             f"{d['device_busy_ms']:.3f} ms, idle share "
             f"{d['idle_share']:.3f}; top kernels: " + "; ".join(
                 f"{k[:60]} {ms:.3f} ms" for k, ms in d["top_kernels"]))
-    log(f"serve step B=32 640x640 bf16: {step_ms:.3f} ms/batch, "
+    log(f"serve step B=32 640x640 bf16: {step_ms:.3f} ms/batch "
+        f"({step_ms_early:.3f} ms right after phase 4a), "
         f"{32e3 / step_ms:.1f} img/s | forward {fwd_ms:.3f} ms, "
         f"select+decode {sel_ms:.3f} ms, nms_sorted_candidates "
         f"{nms_ms:.3f} ms (incl. kernel)")
@@ -835,6 +1169,9 @@ def main() -> int:
         "replaces": "heltondetection_tpu/ops/nms.py:219",
         "launches": counts["nms_fixpoint"],
         "launches_packed_eval": eval_counts["packed"]["nms_fixpoint"],
+        "launches_load_detector": load_counts["nms_fixpoint"],
+        "launches_tta": tta_counts["nms_fixpoint"],
+        "launches_batching": batch_counts["nms_fixpoint"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
@@ -879,10 +1216,18 @@ def main() -> int:
         "bound_ms": iou_t["bound"][0], "bound_by": iou_t["bound"][1],
         "library_ms": None, "library_note": NO_LIBRARY,
         "device_ms": iou_t["device_ms"],
-        "check": "within 1 ulp of box_iou_matrix (1024x8192, ragged "
-                 "1000x25200 with zero-area rows)",
+        "tall_65536x128": {
+            "ms": iou_tall["ms"], "device_ms": iou_tall["device_ms"],
+            "plain_ms": iou_tall["plain_ms"],
+            "bound_ms": iou_tall["bound"][0],
+            "bound_by": iou_tall["bound"][1]},
+        "check": "within 1 ulp of box_iou_matrix, float4 store (1024x8192, "
+                 "ragged 1000x25200 with zero-area rows, N=1, 65536x128) "
+                 "and float store (M % 4 = 1, 2, 3 and M=1)",
     }]
     serve = {"serve_ms_per_batch_b32": step_ms,
+             "serve_ms_per_batch_b32_after_4a": step_ms_early,
+             "eager_launch_floor_us": launch_us,
              "serve_img_per_s_b32": 32e3 / step_ms,
              "forward_ms_b32": fwd_ms, "select_decode_ms_b32": sel_ms,
              "nms_sorted_candidates_ms_b32": nms_ms,
@@ -902,6 +1247,7 @@ def main() -> int:
                   "wall_s": time.perf_counter() - t_start})
     log(json.dumps({"serve": serve}))
     log(json.dumps({"eval": evals}))
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ needs ``nvcc``.
 
 Ported so far: the YOLOv5 packed-head serve path (uint8 NHWC frames →
 CSPDarknet → PAFPNv5 → packed head → fused select/decode → class-aware greedy
-NMS on the ``nms_fixpoint`` CUDA kernel), the non-TTA ``Detector``, and the
-COCO eval path (``forward_for_eval`` → ``decode_full`` → multi-label
+NMS on the ``nms_fixpoint`` CUDA kernel); the serving surface over it
+(``load_detector`` from a config file and a checkpoint directory, the
+``Detector`` with TTA views fused by WBF, ``BatchingDetector`` and its HTTP
+front end, ``python -m heltondetection_tpu_torch.cli --mode serve``); and
+the COCO eval path (``forward_for_eval`` → ``decode_full`` → multi-label
 candidates → ``batched_nms`` on the ``nms_mask`` CUDA kernel → letterbox
 inverse → the port's own ``DetEval``) through ``Evaluator``. The pairwise
 IoU op ``ops.boxes.iou_matrix`` runs the ``iou_matrix`` CUDA kernel.
@@ -20,29 +23,25 @@ CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).
 
 __version__ = "0.1.0"
 
-__all__ = ["build_yolov5", "make_packed_serve_step", "Detector",
-           "Evaluator", "forward_for_eval", "resolve_device"]
+# name → module that defines it; resolved on first access, so importing
+# the package pulls in no model code
+_EXPORTS = {
+    "load_detector": "engine.runner",
+    "BatchingDetector": "engine.serve",
+    "serve_http": "engine.serve",
+    "build_yolov5": "models.yolov5",
+    "make_packed_serve_step": "engine.evaluator",
+    "Detector": "engine.infer",
+    "Evaluator": "engine.evaluator",
+    "forward_for_eval": "engine.runner",
+    "resolve_device": "device",
+}
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name):
-    # lazy: importing the package pulls in no model code
-    if name == "build_yolov5":
-        from heltondetection_tpu_torch.models.yolov5 import build_yolov5
-        return build_yolov5
-    if name == "make_packed_serve_step":
-        from heltondetection_tpu_torch.engine.evaluator import \
-            make_packed_serve_step
-        return make_packed_serve_step
-    if name == "Detector":
-        from heltondetection_tpu_torch.engine.infer import Detector
-        return Detector
-    if name == "Evaluator":
-        from heltondetection_tpu_torch.engine.evaluator import Evaluator
-        return Evaluator
-    if name == "forward_for_eval":
-        from heltondetection_tpu_torch.engine.runner import forward_for_eval
-        return forward_for_eval
-    if name == "resolve_device":
-        from heltondetection_tpu_torch.device import resolve_device
-        return resolve_device
+    if name in _EXPORTS:
+        import importlib
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,17 +7,36 @@
 // Bound on this card. Each output costs 13 f32 operations against 4 bytes
 // written, far below the card's 20 operations per byte of f32 rate over
 // HBM rate, so the (N, M) store bounds it: (4*N*M + 16*(N+M)) bytes over
-// 3.35 TB/s, 31 us at N = 1024, M = 25200.
+// 3.35 TB/s, 31 us at N = 1024, M = 25200. The IEEE division makes each
+// output about 28 instructions, so the rate at which the schedulers hand
+// out instructions is a second bound of nearly the same size (about 24 us
+// there): the inner loop carries nothing but the arithmetic and the store.
 //
 // Design. The Pallas kernel emits one (256, 512) tile per grid step, with
 // the boxes coordinate-major so each pairwise op is a (sublane, lane)
-// broadcast. Here a block of 32 x 8 threads owns a 32-row, 128-column tile:
-// it stages the tile's 32 row boxes and 128 column boxes (and their areas)
-// in shared memory once, and each thread computes 16 outputs, rows
-// ty + 8k and columns tx + 32l. A warp is one row of 32 neighbouring
-// columns, so every store is one coalesced 128-byte line. The ragged edge
-// is masked in the kernel, so N and M may be anything; the Pallas kernel
-// needs multiples of 8 and 128.
+// broadcast. Here the unit of work is a warp's tile of 16 rows by 128
+// columns, and the tiles are dealt to the warps of a one-dimensional grid,
+// neighbouring warps on neighbouring column tiles. Each lane owns four
+// columns: it loads their boxes once and keeps the 16 coordinates and 4
+// areas in registers. The warp stages its 16 row boxes and areas in shared
+// memory, and each lane walks down the rows: one broadcast read of the
+// row's box and area, four outputs, and a streaming store (st.global.cs:
+// the matrix is written once and never read here, so it should not stay
+// in L2). There is no column load in the loop, and a tile that lies
+// wholly inside the matrix runs a loop with no edge test. A lane's four
+// divisions are one dependent chain after another, so it is the number of
+// warps in flight that hides their latency: short tiles (16 rows, not 64
+// or 128) measured fastest, most of all for a tall narrow matrix, which
+// has few column tiles.
+//
+// Two stores. When M is a multiple of 4 every row of the output starts on
+// a 16-byte boundary: a lane owns columns 4*lane .. 4*lane+3 and writes
+// them as one float4, 512 contiguous bytes per warp and instruction, and
+// a lane is wholly inside or wholly outside the matrix. For any other M a
+// lane owns columns lane, lane+32, lane+64 and lane+96 and writes four
+// floats, each instruction one contiguous 128-byte run of the warp. The
+// caller says which (`vec`); the vector kernel must not be launched with
+// M % 4 != 0.
 //
 // Rounding. Every operation is written with an _rn intrinsic, in the order
 // of the plain PyTorch box_iou_matrix, and the division is IEEE; the build
@@ -28,10 +47,9 @@
 
 namespace {
 
-constexpr int kRows = 32;      // tile rows = 4 passes of blockDim.y
-constexpr int kCols = 128;     // tile columns = 4 passes of a warp
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
+constexpr int kTileRows = 16;    // rows a warp walks down
+constexpr int kTileCols = 128;   // 32 lanes x 4 columns
+constexpr int kWarps = 4;        // warps (tiles) per block
 constexpr float kEps = 1e-7f;
 
 __device__ __forceinline__ float area_of(float4 b) {
@@ -39,53 +57,90 @@ __device__ __forceinline__ float area_of(float4 b) {
                    fmaxf(__fsub_rn(b.w, b.y), 0.0f));
 }
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-iou_matrix_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
-                  float* __restrict__ out, int n, int m) {
-  __shared__ float4 row_box[kRows];
-  __shared__ float row_area[kRows];
-  __shared__ float4 col_box[kCols];
-  __shared__ float col_area[kCols];
+__device__ __forceinline__ float iou_of(float4 p, float ap, float4 q,
+                                        float aq) {
+  const float iw = fmaxf(__fsub_rn(fminf(p.z, q.z), fmaxf(p.x, q.x)), 0.0f);
+  const float ih = fmaxf(__fsub_rn(fminf(p.w, q.w), fmaxf(p.y, q.y)), 0.0f);
+  const float inter = __fmul_rn(iw, ih);
+  const float den = __fadd_rn(__fsub_rn(__fadd_rn(ap, aq), inter), kEps);
+  // A zero numerator sends __fdiv_rn down its slow path (a call of some
+  // hundred instructions), and most pairs of boxes do not overlap: divide
+  // 1 instead and hand back the zero itself (0 / den is that zero).
+  const bool some = inter != 0.0f;
+  const float quot = __fdiv_rn(some ? inter : 1.0f, den);
+  return some ? quot : inter;
+}
 
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kCols;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  if (tid < kRows) {
-    const int i = row0 + tid;
-    const float4 box = i < n ? a[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    row_box[tid] = box;
-    row_area[tid] = area_of(box);
-  }
-  if (tid < kCols) {
-    const int j = col0 + tid;
-    const float4 box = j < m ? b[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    col_box[tid] = box;
-    col_area[tid] = area_of(box);
-  }
-  __syncthreads();
-
+// One warp's tile: rows row0 .. row0+rows-1, columns col0 .. col0+127.
+// kFull: the tile lies inside the matrix (rows == kTileRows, every column
+// < m), so nothing is tested.
+template <bool kVec, bool kFull>
+__device__ __forceinline__ void warp_tile(
+    const float4* __restrict__ row_box, const float* __restrict__ row_area,
+    const float4* __restrict__ b, float* __restrict__ out, int row0, int rows,
+    int col0, int m, int lane) {
+  int col[4];
+  float4 q[4];
+  float aq[4];
 #pragma unroll
-  for (int r = threadIdx.y; r < kRows; r += kThreadsY) {
-    const int i = row0 + r;
-    if (i >= n) break;
+  for (int k = 0; k < 4; ++k) {
+    col[k] = col0 + (kVec ? 4 * lane + k : lane + 32 * k);
+    q[k] = (kFull || col[k] < m) ? __ldg(b + col[k])
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    aq[k] = area_of(q[k]);
+  }
+  float* optr = out + static_cast<size_t>(row0) * m + col[0];
+  const int n_rows = kFull ? kTileRows : rows;
+#pragma unroll 4
+  for (int r = 0; r < n_rows; ++r) {
     const float4 p = row_box[r];
     const float ap = row_area[r];
-    float* orow = out + static_cast<size_t>(i) * m;
+    float v[4];
 #pragma unroll
-    for (int c = threadIdx.x; c < kCols; c += kThreadsX) {
-      const int j = col0 + c;
-      if (j >= m) break;
-      const float4 q = col_box[c];
-      const float iw =
-          fmaxf(__fsub_rn(fminf(p.z, q.z), fmaxf(p.x, q.x)), 0.0f);
-      const float ih =
-          fmaxf(__fsub_rn(fminf(p.w, q.w), fmaxf(p.y, q.y)), 0.0f);
-      const float inter = __fmul_rn(iw, ih);
-      const float den =
-          __fadd_rn(__fsub_rn(__fadd_rn(ap, col_area[c]), inter), kEps);
-      orow[j] = __fdiv_rn(inter, den);
+    for (int k = 0; k < 4; ++k) v[k] = iou_of(p, ap, q[k], aq[k]);
+    if (kVec) {
+      // m % 4 == 0: the lane's four columns are all inside or all outside
+      if (kFull || col[0] < m)
+        __stcs(reinterpret_cast<float4*>(optr),
+               make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (kFull || col[k] < m) __stcs(optr + 32 * k, v[k]);
     }
+    optr += m;
   }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kWarps * 32)
+iou_matrix_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
+                  float* __restrict__ out, int n, int m, int col_tiles,
+                  long long tiles) {
+  __shared__ float4 row_box[kWarps][kTileRows];
+  __shared__ float row_area[kWarps][kTileRows];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long tile = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (tile >= tiles) return;          // a whole warp; no block barrier below
+  const int row0 = static_cast<int>(tile / col_tiles) * kTileRows;
+  const int col0 = static_cast<int>(tile % col_tiles) * kTileCols;
+  const int rows = min(kTileRows, n - row0);
+
+  for (int r = lane; r < rows; r += 32) {
+    const float4 box = __ldg(a + row0 + r);
+    row_box[warp][r] = box;
+    row_area[warp][r] = area_of(box);
+  }
+  __syncwarp();
+
+  if (rows == kTileRows && col0 + kTileCols <= m)
+    warp_tile<kVec, true>(row_box[warp], row_area[warp], b, out, row0, rows,
+                          col0, m, lane);
+  else
+    warp_tile<kVec, false>(row_box[warp], row_area[warp], b, out, row0, rows,
+                           col0, m, lane);
 }
 
 }  // namespace
@@ -93,13 +148,24 @@ iou_matrix_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
 extern "C" {
 
 // Launches the (N, M) IoU matrix on `stream`; returns the CUDA error code.
+// `vec` != 0 selects the float4 store and needs m % 4 == 0 and a 16-byte
+// aligned `out`.
 int iou_matrix_launch(const void* a, const void* b, void* out, int n, int m,
-                      void* stream) {
-  const dim3 grid((m + kCols - 1) / kCols, (n + kRows - 1) / kRows);
-  const dim3 block(kThreadsX, kThreadsY);
-  iou_matrix_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(a), static_cast<const float4*>(b),
-      static_cast<float*>(out), n, m);
+                      int vec, void* stream) {
+  const int col_tiles = (m + kTileCols - 1) / kTileCols;
+  const long long tiles =
+      static_cast<long long>((n + kTileRows - 1) / kTileRows) * col_tiles;
+  const unsigned grid = static_cast<unsigned>((tiles + kWarps - 1) / kWarps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto pa = static_cast<const float4*>(a);
+  const auto pb = static_cast<const float4*>(b);
+  const auto po = static_cast<float*>(out);
+  if (vec)
+    iou_matrix_kernel<true><<<grid, kWarps * 32, 0, s>>>(pa, pb, po, n, m,
+                                                         col_tiles, tiles);
+  else
+    iou_matrix_kernel<false><<<grid, kWarps * 32, 0, s>>>(pa, pb, po, n, m,
+                                                          col_tiles, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

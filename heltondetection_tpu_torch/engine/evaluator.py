@@ -123,6 +123,33 @@ def make_packed_serve_step(model: YOLOv5, num_classes: int, *,
     return step
 
 
+def dispatch_step(step: Callable, images, device: torch.device):
+    """Enqueue ``step`` on one uint8 batch and its dets' copy to the host,
+    without waiting for either. ``images`` (numpy or tensor) goes up through
+    pinned memory (a tensor that is pinned already is not copied again), so
+    the upload does not wait for a step still queued; the dets come down
+    into pinned buffers. Returns (dets on the host, the event that marks
+    the copies done, or None on the CPU): call ``event.synchronize()``
+    before reading the dets."""
+    x = images
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if x.device != device:
+        if device.type == "cuda":
+            x = x.pin_memory().to(device, non_blocking=True)
+        else:
+            x = x.to(device)
+    with torch.inference_mode():
+        out = step(x)
+    if device.type != "cuda":
+        return tuple(out), None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 .copy_(t, non_blocking=True) for t in out)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, done
+
+
 class Evaluator:
     """COCO-style evaluator over an iterator of batches.
 
@@ -189,28 +216,9 @@ class Evaluator:
         return stats
 
     def _dispatch(self, images):
-        """Enqueue one batch's step and its dets' copy to the host. Returns
-        (dets on the host, the event that marks the copy done, or None on
-        the CPU)."""
-        x = images
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        if x.device != self.device:
-            if self.device.type == "cuda":
-                # pinned, so the upload does not wait for the queued step
-                x = x.pin_memory().to(self.device, non_blocking=True)
-            else:
-                x = x.to(self.device)
-        with torch.inference_mode():
-            out = self._step(x)
-        if self.device.type != "cuda":
-            return tuple(out), None
-        stream = torch.cuda.current_stream(self.device)
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     .copy_(t, non_blocking=True) for t in out)
-        done = torch.cuda.Event()
-        done.record(stream)
-        return host, done
+        """Enqueue one batch's step and its dets' copy to the host; see
+        :func:`dispatch_step`."""
+        return dispatch_step(self._step, images, self.device)
 
     @staticmethod
     def _accumulate(ev: DetEval, out, meta) -> int:

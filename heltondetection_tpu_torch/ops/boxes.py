@@ -2,8 +2,8 @@
 
 ``xyxy`` is (x1, y1, x2, y2) in absolute pixels, ``cxcywh`` (cx, cy, w, h),
 ``xywh`` COCO's (x_min, y_min, w, h). Every function takes any leading batch
-dims with the box dim last. ``bbox_iou``, the delta codecs and
-``box_ioa_matrix`` come with the training and FasterRCNN slices.
+dims with the box dim last. The delta codecs and ``box_ioa_matrix`` come
+with the FasterRCNN slice.
 
 :func:`iou_matrix` is the public op of the ``iou_matrix`` CUDA kernel
 (``csrc/iou_matrix.cu``, counterpart of ``iou_matrix_pallas``); its plain
@@ -11,6 +11,8 @@ version is :func:`box_iou_matrix`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,10 +43,57 @@ def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
     return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
 
 
+def clip_boxes(b: torch.Tensor, h: float, w: float) -> torch.Tensor:
+    """Clip xyxy boxes to the image bounds [0, w] x [0, h]."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1.clamp(0.0, w), y1.clamp(0.0, h),
+                        x2.clamp(0.0, w), y2.clamp(0.0, h)], dim=-1)
+
+
 def box_area(b: torch.Tensor) -> torch.Tensor:
     """Area of xyxy boxes; negative extents clamp to 0."""
     return ((b[..., 2] - b[..., 0]).clamp(min=0.0) *
             (b[..., 3] - b[..., 1]).clamp(min=0.0))
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, *, fmt: str = "xyxy",
+             kind: str = "iou") -> torch.Tensor:
+    """Elementwise IoU between broadcast-compatible boxes, ``kind`` one of
+    iou, giou, diou and ciou. CIoU is the YOLOv5 v6.1 formula: the
+    aspect-ratio term v = (4/π²)(atan(w2/h2) − atan(w1/h1))² with
+    alpha = v / (1 − iou + v) computed in the graph."""
+    if kind not in ("iou", "giou", "diou", "ciou"):
+        raise ValueError(f"unknown IoU kind: {kind}")
+    if fmt == "cxcywh":
+        box1, box2 = cxcywh_to_xyxy(box1), cxcywh_to_xyxy(box2)
+    # x and y ride together as (..., 2) halves: the same arithmetic per
+    # element as the reference's per-coordinate form, in half the launches
+    lo1, hi1, lo2, hi2 = box1[..., :2], box1[..., 2:], box2[..., :2], \
+        box2[..., 2:]
+    wh = (torch.minimum(hi1, hi2) - torch.maximum(lo1, lo2)).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    wh1, wh2 = hi1 - lo1, hi2 - lo2
+    union = wh1[..., 0] * wh1[..., 1] + wh2[..., 0] * wh2[..., 1] - inter + EPS
+    iou = inter / union
+    if kind == "iou":
+        return iou
+
+    c = torch.maximum(hi1, hi2) - torch.minimum(lo1, lo2)      # enclosing box
+    if kind == "giou":
+        c_area = c[..., 0] * c[..., 1] + EPS
+        return iou - (c_area - union) / c_area
+
+    c2 = c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1] + EPS   # diagonal²
+    d = (lo2 + hi2 - lo1 - hi1) ** 2
+    rho2 = (d[..., 0] + d[..., 1]) * 0.25
+    if kind == "diou":
+        return iou - rho2 / c2
+
+    v = (4.0 / math.pi ** 2) * (
+        torch.atan(wh2[..., 0] / (wh2[..., 1] + EPS)) -
+        torch.atan(wh1[..., 0] / (wh1[..., 1] + EPS))) ** 2
+    alpha = v / (v - iou + (1.0 + EPS))
+    return iou - (rho2 / c2 + v * alpha)
 
 
 def box_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

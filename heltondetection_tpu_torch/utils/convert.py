@@ -9,7 +9,7 @@ and the ``batch_stats`` ``mean``/``var`` go to ``weight``/``bias`` and
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,3 +53,21 @@ def from_jax_variables(variables: Any) -> Dict[str, torch.Tensor]:
             if leaf == "mean":
                 sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def checkpoint_from_jax_variables(variables: Any, ckpt_dir: str, step: int = 0,
+                                  ema_params: Optional[Any] = None) -> str:
+    """Carry a reference checkpoint across: the flax ``{"params",
+    "batch_stats"}`` tree (numpy leaves, e.g. the reference's
+    ``restore_eval_variables`` output after ``jax.device_get``) is written
+    as a checkpoint of the port under ``ckpt_dir``. ``ema_params``, the
+    reference's EMA parameter tree, becomes the ``ema`` state dict, with
+    the same ``batch_stats``. Returns the file written."""
+    from heltondetection_tpu_torch.utils.ckpt import save_eval_variables
+    ema = None
+    if ema_params is not None:
+        ema = from_jax_variables({
+            "params": ema_params,
+            "batch_stats": variables.get("batch_stats", {})})
+    return save_eval_variables(ckpt_dir, from_jax_variables(variables), step,
+                               ema_state=ema)

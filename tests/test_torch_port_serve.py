@@ -33,8 +33,11 @@ import heltondetection_tpu_torch.device as port_device
 from heltondetection_tpu_torch.data.letterbox import letterbox_np
 from heltondetection_tpu_torch.engine.evaluator import (Evaluator,
                                                        make_packed_serve_step)
+from heltondetection_tpu_torch import cli
 from heltondetection_tpu_torch.engine.infer import Detector
-from heltondetection_tpu_torch.engine.runner import forward_for_eval
+from heltondetection_tpu_torch.engine.runner import (forward_for_eval,
+                                                     load_detector)
+from heltondetection_tpu_torch.engine.serve import BatchingDetector
 from heltondetection_tpu_torch.kernels import launch_counts
 from heltondetection_tpu_torch.models.yolov5 import build_yolov5
 
@@ -160,14 +163,32 @@ def test_letterbox_matches_cv2(hw):
     np.testing.assert_allclose(gboxes, wboxes, atol=1e-5)
 
 
+class _CudaDetectorStub:
+    """What BatchingDetector reads of a Detector that sits on a CUDA
+    device."""
+    tta, img_size, device = False, SIZE, torch.device("cuda", 0)
+
+
+def _warmup_on_cuda_detector():
+    batcher = BatchingDetector(_CudaDetectorStub(), batch_size=2)
+    try:
+        batcher.warmup()
+    finally:
+        assert batcher.close(timeout=30.0)
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "build_yolov5",
                                    "make_packed_serve_step", "Detector",
-                                   "Evaluator", "forward_for_eval"])
+                                   "Evaluator", "forward_for_eval",
+                                   "load_detector", "BatchingDetector.warmup",
+                                   "cli"])
 def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
     """(h) with no CUDA, every entry point raises unless device="cpu"."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_device.resolve_device("cpu") == torch.device("cpu")
     model = weights[2]
+    config = str(ROOT / "heltondetection_tpu_torch" / "configs" /
+                 "yolov5_s_coco_640.py")
     call = {
         "resolve_device": lambda: port_device.resolve_device(),
         "build_yolov5": lambda: build_yolov5("n", NC),
@@ -175,30 +196,35 @@ def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
         "Detector": lambda: Detector(lambda x: x, NC, SIZE),
         "Evaluator": lambda: Evaluator(lambda x: x, NC),
         "forward_for_eval": lambda: forward_for_eval(model, NC),
+        "load_detector": lambda: load_detector(config),
+        "BatchingDetector.warmup": _warmup_on_cuda_detector,
+        "cli": lambda: cli.main(["--mode", "serve", "--config", config]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 
 
 def test_bad_arguments_raise(weights):
-    """TTA is not ported yet; a class count other than the model's would
-    read the wrong head lanes."""
-    with pytest.raises(NotImplementedError):
-        Detector(lambda x: x, NC, SIZE, tta=True, device="cpu")
+    """A Detector needs exactly one of a step and a forward; a class count
+    other than the model's would read the wrong head lanes."""
+    with pytest.raises(ValueError, match="exactly one"):
+        Detector(None, NC, SIZE, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        Detector(lambda x: x, NC, SIZE, forward_fn=lambda x: x, device="cpu")
     with pytest.raises(ValueError, match="num_classes"):
         make_packed_serve_step(weights[2], NC + 1, device="cpu")
 
 
 def test_import_leaves_jax_out():
-    """(i) importing the whole port pulls in neither jax, flax nor the JAX
-    package."""
+    """(i) importing the whole port (the config files and the CLI
+    included) pulls in neither jax, flax, orbax nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import heltondetection_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'heltondetection_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'orbax', 'heltondetection_tpu')]\n"
         "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -207,12 +233,12 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_import_nothing_of_jax():
-    """(i) no import of jax, flax or heltondetection_tpu in the port's
-    sources or in chip_smoke.py."""
-    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|"
+    """(i) no import of jax, flax, orbax or heltondetection_tpu in the
+    port's sources or in chip_smoke.py."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|orbax|"
                      r"heltondetection_tpu)(\.|\s|$)", re.M)
     files = sorted((ROOT / "heltondetection_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    assert len(files) > 50
     for f in files:
         assert not pat.search(f.read_text()), f
