@@ -62,6 +62,31 @@ fails:
       sizes; the stats must add up, nms_fixpoint must launch once per
       batch, close() must return True. The HTTP front end answers
       /healthz (no image decoder is promised on the card's machine);
+   e. train: a full-width YOLOv5s (80 classes, 640², bf16 compute over f32
+      master weights, batch 16, lr 1e-3, mosaic 0.5, HSV, flip 0.5, affine,
+      EMA) on in-memory datasets made from a seed (64 train and 32 val
+      frames of mixed sizes, 375×500 to 1080×1920, uint8 noise with 2–8
+      filled rectangles of one colour per class), no image decoder needed:
+      - run_train's inner function (train_from_datasets) in a temporary
+        work dir, 2 epochs × 4 steps with the launch counts reset before:
+        every epoch's metrics finite, the in-loop eval after each epoch
+        launching nms_fixpoint, train_state.pt and eval_variables.pt at
+        step 8 and best.json written; then epochs=3 must resume at step 8
+        and train exactly one more epoch (steps 9–12), and
+        load_detector(config, ckpt=work dir) must give the dets of a
+        Detector built from the EMA weights in train_state.pt;
+      - the loss falls: 30 steps of make_train_step on one fixed batch of
+        16 (augmentation off, 3 warmup steps): the mean total of the last
+        5 at most LOSS_FALL_RATIO (0.5) times that of the first 5;
+      - the card equals the CPU: one train step of a narrow f32 model
+        (width 0.25, 128², B=2, TF32 off) on the card and on CPU copies:
+        metrics within 1e-4 relative (the f32 network's logits on the card
+        and the CPU differ by up to 4e-5 of their largest, phase 4a, so a
+        loss term can differ by a few 1e-5); each gradient tensor within 1e-4 of
+        the global gradient norm and 3e-3 of its own norm (the CPU alone,
+        one thread against eight, differs by 2.3e-5 and 5.3e-4: BatchNorm's
+        backward over two images sums terms that cancel); BN running
+        statistics within 5e-5 (relative, at least 1 absolute);
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -74,13 +99,21 @@ fails:
    of each step), and eval images/s (host accumulate included) on both
    routes at B=32; TTA per batch of 8 and of 32 with WBF's share (CUDA
    events and the host clock), and the BatchingDetector's img/s, mean
-   fill and request latency at 8 clients. No single PyTorch call
+   fill and request latency at 8 clients. Phase 4e adds the train step at
+   B=16 (CUDA events: ms, img/s; forward, loss, backward and optimizer +
+   EMA apart), its device-busy time, idle share and top kernels from
+   torch.profiler, torch.cuda.max_memory_allocated, its FLOPs counted from
+   the conv and matmul shapes by forward hooks and the share of the H100's
+   dense bf16 peak (989 TFLOP/s) they reach, the host pipeline's img/s at
+   640² with mosaic, the share of run_train's epochs spent waiting for the
+   loader and the in-loop eval's img/s. No single PyTorch call
    computes greedy NMS or a pairwise IoU matrix (there is no torchvision),
    so library_ms is null for every kernel.
 
-The lines before the last are the serve, eval and serving lines, the
-kernels line, {"kernels": [...]}, and the card's nvidia-smi line; the last
-line is {"ok": true, "device": {...}}.
+The lines before the last are the serve, eval, serving and train lines,
+the kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the
+in-loop eval's launches as launches_train_eval), and the card's nvidia-smi
+line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -197,7 +230,9 @@ def profiled_ms(fn, iters: int, names) -> dict:
 def device_kernels(fn, iters: int) -> list:
     """[(name, device ms per call), ...] of every kernel, copy and fill
     that fn() runs on the card, most time first, from torch.profiler over
-    iters calls after one warm-up call."""
+    iters calls after one warm-up call. The GPU-side ranges of annotations
+    (``Optimizer.step#AdamW.step``) span kernels listed on their own, so
+    they are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -209,7 +244,9 @@ def device_kernels(fn, iters: int) -> list:
         torch.cuda.synchronize()
     rows = [(evt.key, evt.device_time_total / iters / 1e3)
             for evt in prof.key_averages()
-            if str(evt.device_type).endswith("CUDA")]
+            if str(evt.device_type).endswith("CUDA")
+            and not getattr(evt, "is_user_annotation", False)
+            and not evt.key.startswith(("Optimizer.", "ProfilerStep"))]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -388,6 +425,376 @@ def client_load(batcher, frames, n_clients, per_client, timeout=120.0):
         raise AssertionError(f"only {len(results)} of "
                              f"{n_clients * per_client} requests resolved")
     return results, latencies, wall
+
+
+BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+LOSS_FALL_RATIO = 0.5        # last-5 mean total / first-5 mean total, at most
+TRAIN_SIZES = [(375, 500), (480, 640), (720, 1280), (1080, 1920), (640, 640),
+               (640, 427), (512, 512), (300, 400)]
+
+
+class SynthFrames:
+    """An in-memory reader (the interface of data/readers.py's): seeded
+    uint8 noise frames of mixed sizes, each with 2–8 filled rectangles, one
+    colour per class, as its boxes. No image decoder is needed."""
+
+    def __init__(self, n: int, seed: int, num_classes: int = 80):
+        rng = np.random.default_rng(seed)
+        self.num_classes = num_classes
+        self.label_to_cat = {i: i for i in range(num_classes)}
+        palette = rng.integers(0, 256, (num_classes, 3)).astype(np.uint8)
+        self.frames = []
+        for i in range(n):
+            h, w = TRAIN_SIZES[i % len(TRAIN_SIZES)]
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            k = int(rng.integers(2, 9))
+            wh = rng.uniform(0.05, 0.45, (k, 2)) * [w, h]
+            xy = rng.uniform(0, 1, (k, 2)) * ([w, h] - wh)
+            boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+            cls = rng.integers(0, num_classes, k).astype(np.int32)
+            for (x1, y1, x2, y2), c in zip(boxes.astype(int), cls):
+                img[y1:y2, x1:x2] = palette[c]
+            self.frames.append((img, boxes, cls))
+
+    def __len__(self):
+        return len(self.frames)
+
+    def load(self, i):
+        img, boxes, cls = self.frames[i]
+        return {"image": img, "boxes": boxes, "classes": cls,
+                "iscrowd": np.zeros(len(cls), np.int32), "img_id": i,
+                "file": f"{i}.png"}
+
+    def gt_for_eval(self, det_eval):
+        for i, (_, b, c) in enumerate(self.frames):
+            det_eval.add_gt(i, np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]],
+                                              1), c)
+
+
+class LogRecords:
+    """Collects the port logger's records (the runner's epoch and eval
+    stats ride on them as ``extra`` fields)."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.logger = logging.getLogger("heltondetection_tpu_torch")
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        self.logger.addHandler(self.handler)
+
+    def field(self, name):
+        return [getattr(r, name) for r in self.records if hasattr(r, name)]
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def train_flops(model, batch, loss_cfg):
+    """Multiply-adds ×2 of one train step's forward, counted from shapes:
+    every conv by a forward hook on its ConvBnAct (2·B·Ho·Wo·Cout·Cin/g·k²),
+    the packed head's objectness matmul (2·B·HW·cin·A per level) and the
+    loss's candidate GEMM (2·B·M·O·cin·A·CP per level). The backward is
+    counted as twice the forward (a gradient for the input and one for the
+    weight), so a step is 3× the forward."""
+    import torch
+    from heltondetection_tpu_torch.models.common import ConvBnAct
+    from heltondetection_tpu_torch.models.yolov5 import packed_cls_width
+    flops = {"conv": 0, "head": 0}
+
+    def conv_hook(mod, inp, out):
+        c = mod.conv
+        k = c.kernel_size[0] * c.kernel_size[1]
+        flops["conv"] += 2 * out.numel() * (c.in_channels // c.groups) * k
+
+    def head_hook(mod, inp, outs):
+        m = batch["gt_boxes"].shape[1]
+        for pobj, f2, wblocks, _ in outs:
+            b, hw, cin = f2.shape
+            a = pobj.shape[-1]
+            flops["head"] += 2 * b * hw * cin * a
+            flops["head"] += 2 * b * m * 3 * cin * a * packed_cls_width(
+                loss_cfg.num_classes)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, ConvBnAct)]
+    hooks.append(model.register_forward_hook(head_hook))
+    try:
+        with torch.no_grad():
+            model(batch["image"].float() / 255.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd = flops["conv"] + flops["head"]
+    return {"forward_flops": fwd, "conv_flops": flops["conv"],
+            "head_flops": flops["head"], "step_flops": 3 * fwd}
+
+
+TRAIN_CONFIG = dict(name="chip_train", variant="s", num_classes=80,
+                    img_size=640, dtype="bfloat16", batch_size=16, lr=1e-3,
+                    mosaic_p=0.5, flip_p=0.5)
+
+
+def train_phase(dev, smi: str) -> dict:
+    """Phase 4e: run_train end to end, the loss falling, the card against
+    the CPU, and the train step's times. Returns the train JSON fields and
+    the in-loop eval's nms_fixpoint launches."""
+    import copy
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.configs.base import (DataConfig,
+                                                        EvalConfig,
+                                                        ExperimentConfig,
+                                                        ModelConfig,
+                                                        TrainConfig)
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    from heltondetection_tpu_torch.engine.runner import (_make_detector,
+                                                         build_model,
+                                                         load_detector,
+                                                         train_from_datasets)
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.models.yolov5 import YOLOv5
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step,
+                                                         update_ema)
+    from heltondetection_tpu_torch.train.yolo_loss import (YoloLossConfig,
+                                                           yolo_loss_packed)
+    from heltondetection_tpu_torch.utils import ckpt as ckpt_io
+
+    from heltondetection_tpu_torch.models.cspdarknet import VARIANTS
+    tc = TRAIN_CONFIG
+    size = tc["img_size"]
+    depth_m, width_m = VARIANTS[tc["variant"]]
+    out = {"card": smi, "config": dict(tc)}
+    t0 = time.perf_counter()
+    train_ds, val_ds = SynthFrames(64, 10), SynthFrames(32, 11)
+    log(f"train data: 64 + 32 frames in {time.perf_counter() - t0:.2f} s")
+
+    # a. run_train end to end: 2 epochs x 4 steps, then resume for a third
+    records = LogRecords()
+    with tempfile.TemporaryDirectory() as work:
+        cfg = ExperimentConfig(
+            name=tc["name"], work_dir=work,
+            model=ModelConfig(variant=tc["variant"],
+                              num_classes=tc["num_classes"],
+                              img_size=tc["img_size"], dtype=tc["dtype"]),
+            train=TrainConfig(epochs=2, batch_size=tc["batch_size"],
+                              lr=tc["lr"], mosaic_p=tc["mosaic_p"],
+                              flip_p=tc["flip_p"], warmup_epochs=1.0,
+                              eval_interval=1, ckpt_interval=1,
+                              num_workers=8),
+            eval=EvalConfig(batch_size=16))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            best = train_from_datasets(cfg, train_ds, val_ds, device=dev)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+            counts2 = dict(launch_counts)
+            epochs2 = records.field("epoch_stats")
+            evals2 = records.field("eval_stats")
+            step_dir = os.path.join(cfg.ckpt_dir, "8")
+            files = sorted(os.listdir(step_dir))
+            best_json = os.path.isfile(os.path.join(work, tc["name"],
+                                                    "best.json"))
+            records.records.clear()
+            cfg.train.epochs = 3
+            t0 = time.perf_counter()
+            train_from_datasets(cfg, train_ds, val_ds, device=dev)
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t0
+            counts3 = dict(launch_counts)
+            epochs3 = records.field("epoch_stats")
+            evals3 = records.field("eval_stats")
+            resumed = records.field("resumed_step")
+            steps_kept = sorted(int(d) for d in os.listdir(cfg.ckpt_dir))
+            saved = torch.load(os.path.join(cfg.ckpt_dir, "12",
+                                            "train_state.pt"),
+                               map_location="cpu", weights_only=True)
+            served = load_detector(cfg, ckpt=cfg.ckpt_dir, device=dev)
+            by_hand_model = build_model(cfg.model, 80)
+            by_hand_model.load_state_dict({**saved["model"], **saved["ema"]})
+            by_hand = _make_detector(cfg, by_hand_model, 80, device=dev)
+        finally:
+            records.close()
+    log(f"run_train, 2 epochs x 4 steps: {wall2:.1f} s; epochs "
+        f"{[(e['epoch'], e['steps'], round(e['total'], 4)) for e in epochs2]}"
+        f"; in-loop evals AP {[round(e['AP'], 6) for e in evals2]}; "
+        f"launches {counts2}; step 8 files {files}; best.json {best_json}; "
+        f"best AP {best.get('AP')}")
+    log(f"resumed run (epochs=3): {wall3:.1f} s; resumed at {resumed}; "
+        f"epochs {[(e['epoch'], e['steps'], e['step']) for e in epochs3]}; "
+        f"steps kept {steps_kept}; launches during both runs {counts3}")
+    finite = all(math.isfinite(v) for e in epochs2 + epochs3
+                 for k, v in e.items() if isinstance(v, float))
+    if not finite or [e["steps"] for e in epochs2] != [4, 4]:
+        raise AssertionError(f"run_train epochs: {epochs2}")
+    if len(evals2) != 2 or counts2["nms_fixpoint"] < 2:
+        raise AssertionError("the in-loop eval did not run after each epoch "
+                             "or did not launch nms_fixpoint")
+    if files != ["eval_variables.pt", "train_state.pt"] or not best_json:
+        raise AssertionError(f"checkpoint files {files}, best.json "
+                             f"{best_json}")
+    if resumed != [8] or [(e["epoch"], e["steps"], e["step"])
+                          for e in epochs3] != [(2, 4, 12)] \
+            or len(evals3) != 1 or steps_kept[-1] != 12 \
+            or counts3["nms_fixpoint"] <= counts2["nms_fixpoint"]:
+        raise AssertionError(f"resume: {resumed}, {epochs3}, {steps_kept}")
+    frames = [val_ds.frames[i][0] for i in range(4)]
+    got, want = served.detect_batch(frames), by_hand.detect_batch(frames)
+    if not all(same_dets(g, w) for g, w in zip(got, want)):
+        raise AssertionError("load_detector does not serve the run's EMA "
+                             "weights")
+    log(f"load_detector(work dir) == a Detector of train_state.pt's EMA "
+        f"weights at step 12 ({sum(len(d[1]) for d in got)} dets on 4 "
+        f"frames)")
+    secs = [e["seconds"] for e in epochs2 + epochs3]
+    waits = [e["loader_wait_s"] for e in epochs2 + epochs3]
+    out["run_train"] = {
+        "epochs_s": secs, "loader_wait_s": waits,
+        "loader_wait_share": sum(waits) / sum(secs),
+        "ms_per_step": 1e3 * sum(secs) / 12, "wall_s_2_epochs": wall2,
+        "wall_s_resumed_epoch": wall3,
+        "eval_img_per_s": [e["images_per_sec"] for e in evals2 + evals3],
+        "launches_nms_fixpoint": counts3["nms_fixpoint"]}
+
+    # b. the loss falls on one fixed batch of 16, augmentation off
+    loss_cfg = YoloLossConfig(num_classes=80, img_size=size)
+    pipe = TrainPipeline(train_ds, size, mosaic_p=0.0, hsv=False, flip_p=0.0,
+                         max_boxes=128)
+    host = [pipe.sample(i) for i in range(16)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in host])).to(dev)
+             for k in host[0]}
+    model = YOLOv5(80, depth_m, width_m, dtype=torch.bfloat16,
+                   packed_train=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(
+        model, 1e-3, total_steps=30, warmup_steps=3))
+    step = make_train_step(loss_cfg)
+    totals = []
+    for _ in range(30):
+        state, m = step(state, batch)
+        totals.append(m["total"])
+    totals = [float(t) for t in totals]
+    ratio = float(np.mean(totals[-5:]) / np.mean(totals[:5]))
+    log(f"fixed batch of 16, 30 steps: total {totals[0]:.3f} → "
+        f"{totals[-1]:.3f}; last-5 / first-5 mean {ratio:.4f} (must be ≤ "
+        f"{LOSS_FALL_RATIO})")
+    if not all(math.isfinite(t) for t in totals) or ratio > LOSS_FALL_RATIO:
+        raise AssertionError(f"the loss did not fall: {totals}")
+    out["loss_fall"] = {"totals": totals, "ratio": ratio,
+                        "required_ratio": LOSS_FALL_RATIO}
+
+    # c. the card equals the CPU: a narrow f32 step, TF32 off
+    narrow = YOLOv5(80, 0.33, 0.25, packed_train=True)
+    init_weights(narrow, torch.Generator().manual_seed(1))
+    small = {k: v[:2].cpu() for k, v in batch.items()}
+    small["image"] = torch.nn.functional.interpolate(
+        small["image"].permute(0, 3, 1, 2).float(), size=(128, 128),
+        mode="area").round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    small["gt_boxes"] = small["gt_boxes"] * (128 / size)
+    small_cfg = YoloLossConfig(num_classes=80, img_size=128)
+    runs = {}
+    for where in ("cpu", dev):
+        m_ = copy.deepcopy(narrow).to(where)
+        st = create_train_state(m_, make_optimizer(m_, 1e-3, total_steps=10,
+                                                   warmup_steps=1))
+        st, met = make_train_step(small_cfg)(st, {k: v.to(where)
+                                                  for k, v in small.items()})
+        runs[str(where)] = (m_, {k: float(v) for k, v in met.items()})
+    (mc, metc), (mg, metg) = runs["cpu"], runs[str(dev)]
+    metric_errs = {k: abs(metg[k] - metc[k]) / max(abs(metc[k]), 1e-12)
+                   for k in metc}
+    metric_err = max(metric_errs.values())
+    gnorm = metc["grad_norm"]
+    grad_own = max(float((pg.grad.cpu() - pc.grad).abs().max() /
+                         pc.grad.norm()) for pc, pg in
+                   zip(mc.parameters(), mg.parameters()))
+    grad_global = max(float((pg.grad.cpu() - pc.grad).abs().max())
+                      for pc, pg in zip(mc.parameters(), mg.parameters())
+                      ) / gnorm
+    sc, sg = mc.state_dict(), mg.state_dict()
+    stat_err = max(float(((sg[k].cpu() - sc[k]).abs() /
+                          sc[k].abs().clamp(min=1.0)).max())
+                   for k in sc if "running" in k)
+    log(f"narrow f32 step (width 0.25, 128², B=2), card vs CPU: metrics rel "
+        f"{ {k: float(f'{v:.3g}') for k, v in metric_errs.items()} }; grads "
+        f"max |Δ| {grad_own:.3g} of the tensor's "
+        f"norm, {grad_global:.3g} of the global norm; BN running stats "
+        f"{stat_err:.3g}")
+    if not (metric_err <= 1e-4 and grad_global <= 1e-4
+            and grad_own <= 3e-3 and stat_err <= 5e-5):
+        raise AssertionError("the narrow train step on the card differs "
+                             "from the CPU's")
+    out["card_vs_cpu"] = {"metric_rel_err": metric_errs,
+                          "grad_err_of_tensor_norm": grad_own,
+                          "grad_err_of_global_norm": grad_global,
+                          "bn_stat_err": stat_err}
+    del runs, mc, mg
+
+    # times: the train step at B=16, full width, bf16
+    flops = train_flops(model, batch, loss_cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(state, batch), 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0,
+             "optimizer_ema": 0.0}
+    n_parts = 5
+    for _ in range(n_parts):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        outs = model(batch["image"].float() / 255.0)
+        ev[1].record()
+        total, _ = yolo_loss_packed(outs, batch["gt_boxes"], batch["gt_cls"],
+                                    batch["gt_mask"], loss_cfg)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        state.optimizer.step()
+        update_ema(state.ema, model, state.step)
+        state.step += 1
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / n_parts
+    rows = device_kernels(lambda: step(state, batch), 3)
+    busy = sum(ms for _, ms in rows)
+    t0 = time.perf_counter()
+    loader = TrainLoader(TrainPipeline(train_ds, size, mosaic_p=1.0),
+                         16, num_workers=8, device=dev)
+    batches = loader.host_batches(0)
+    n_img = sum(len(next(batches)["image"]) for _ in range(3))
+    batches.close()
+    host_ips = n_img / (time.perf_counter() - t0)
+    mfu = flops["step_flops"] / (step_ms / 1e3) / BF16_FLOP_PER_S
+    out["step_b16"] = {
+        "ms": step_ms, "img_per_s": 16e3 / step_ms,
+        "parts_ms": parts, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / step_ms,
+        "top_kernels": [[k[:80], ms] for k, ms in rows[:8]],
+        "max_memory_allocated_bytes": peak, **flops,
+        "bf16_peak_flop_per_s": BF16_FLOP_PER_S, "mfu": mfu}
+    out["host_pipeline"] = {"img_per_s_640_mosaic1": host_ips,
+                            "workers": 8, "images": n_img}
+    log(f"train step B=16 {size}² bf16 on {smi}: {step_ms:.3f} ms, "
+        f"{16e3 / step_ms:.1f} img/s | forward {parts['forward']:.3f}, loss "
+        f"{parts['loss']:.3f}, backward {parts['backward']:.3f}, optimizer + "
+        f"EMA {parts['optimizer_ema']:.3f} ms | device busy {busy:.3f} ms, "
+        f"idle share {1.0 - busy / step_ms:.3f} | peak memory "
+        f"{peak / 2**30:.2f} GiB | {flops['step_flops'] / 1e12:.3f} TFLOP "
+        f"a step, {mfu:.4f} of the bf16 peak")
+    log(f"host pipeline (mosaic 1.0, HSV, flip, affine; 8 threads): "
+        f"{host_ips:.1f} img/s; run_train waits for the loader "
+        f"{out['run_train']['loader_wait_share']:.3f} of its epochs; "
+        f"in-loop eval {out['run_train']['eval_img_per_s']}")
+    return out
 
 
 def main() -> int:
@@ -967,6 +1374,10 @@ def main() -> int:
         raise AssertionError(f"close() {closed}, healthz {healthz}")
 
     log(f"[phase 4d done at {time.perf_counter() - t_start:.1f} s]")
+    # 4e. training: run_train with its in-loop eval, the loss falling, the
+    # card against the CPU, the train step's times
+    train = train_phase(dev, smi)
+    log(f"[phase 4e done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -1172,6 +1583,7 @@ def main() -> int:
         "launches_load_detector": load_counts["nms_fixpoint"],
         "launches_tta": tta_counts["nms_fixpoint"],
         "launches_batching": batch_counts["nms_fixpoint"],
+        "launches_train_eval": train["run_train"]["launches_nms_fixpoint"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
@@ -1248,6 +1660,7 @@ def main() -> int:
     log(json.dumps({"serve": serve}))
     log(json.dumps({"eval": evals}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ front end, ``python -m heltondetection_tpu_torch.cli --mode serve``); and
 the COCO eval path (``forward_for_eval`` → ``decode_full`` → multi-label
 candidates → ``batched_nms`` on the ``nms_mask`` CUDA kernel → letterbox
 inverse → the port's own ``DetEval``) through ``Evaluator``. The pairwise
-IoU op ``ops.boxes.iou_matrix`` runs the ``iou_matrix`` CUDA kernel.
+IoU op ``ops.boxes.iou_matrix`` runs the ``iou_matrix`` CUDA kernel. YOLOv5
+training: ``run_train`` (seeded host augmentation, pinned uint8 uploads,
+the packed train head and the v6.1 loss, AdamW with warmup and cosine, EMA,
+checkpoints with resume, an in-loop ``run_eval``), and ``python -m
+heltondetection_tpu_torch.cli --mode train|eval``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).
@@ -34,6 +38,8 @@ _EXPORTS = {
     "Detector": "engine.infer",
     "Evaluator": "engine.evaluator",
     "forward_for_eval": "engine.runner",
+    "run_train": "engine.runner",
+    "run_eval": "engine.runner",
     "resolve_device": "device",
 }
 __all__ = list(_EXPORTS)

@@ -1,12 +1,16 @@
 """Command line of the port; counterpart of heltondetection_tpu/cli.py.
 
+    python -m heltondetection_tpu_torch.cli --mode train --config cfg.py
+    python -m heltondetection_tpu_torch.cli --mode eval --config cfg.py
     python -m heltondetection_tpu_torch.cli --mode serve --config cfg.py \
         --port 8000 --serve-batch 16
 
-Only ``--mode serve`` is ported: it loads the config's newest checkpoint
-(``cfg.eval.ckpt``) with ``load_detector`` and serves it over HTTP through a
-``BatchingDetector``. The other modes of the reference raise, naming where
-they stand in ROADMAP.md.
+``train`` runs ``run_train`` (resuming from the newest checkpoint in the
+config's work dir unless ``--no-resume``); ``eval`` scores the config's
+checkpoint (``cfg.eval.ckpt``) on its val set with ``run_eval``; ``serve``
+loads it with ``load_detector`` and serves it over HTTP through a
+``BatchingDetector``. Every mode runs on CUDA unless ``--device cpu``. The
+other modes of the reference raise, naming where they stand in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -15,8 +19,6 @@ import argparse
 import sys
 
 _NOT_PORTED = {
-    "train": "run_train (ROADMAP A6-A9)",
-    "eval": "run_eval (ROADMAP A9)",
     "test": "run_test (ROADMAP A9, A13)",
     "export": "engine/export.py (ROADMAP A13)",
 }
@@ -27,6 +29,9 @@ def main(argv=None):
     p.add_argument("--mode", required=True,
                    choices=["train", "eval", "test", "export", "serve"])
     p.add_argument("--config", required=True, help="python config file")
+    p.add_argument("--no-resume", action="store_true",
+                   help="train mode: start fresh even if a checkpoint "
+                        "exists")
     p.add_argument("--host", default="0.0.0.0", help="serve mode: bind host")
     p.add_argument("--port", type=int, default=8000,
                    help="serve mode: bind port")
@@ -37,17 +42,27 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; CUDA unless given (e.g. cpu)")
     args = p.parse_args(argv)
-    if args.mode != "serve":
+    if args.mode in _NOT_PORTED:
         raise NotImplementedError(
             f"--mode {args.mode} is not ported yet: "
             f"{_NOT_PORTED[args.mode]}")
 
     from heltondetection_tpu_torch.configs.base import load_config
-    from heltondetection_tpu_torch.engine.runner import load_detector
+    from heltondetection_tpu_torch.device import resolve_device
+    from heltondetection_tpu_torch.engine import runner
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    if args.mode == "train":
+        best = runner.run_train(cfg, resume=not args.no_resume, device=dev)
+        print(f"best val: {best}")
+        return 0
+    if args.mode == "eval":
+        runner.run_eval(cfg, device=dev)
+        return 0
+
     from heltondetection_tpu_torch.engine.serve import (BatchingDetector,
                                                         serve_http)
-    cfg = load_config(args.config)
-    det = load_detector(cfg, tta=False, device=args.device)
+    det = runner.load_detector(cfg, tta=False, device=dev)
     with BatchingDetector(det, batch_size=args.serve_batch,
                           max_wait_ms=args.serve_wait_ms) as batcher:
         serve_http(batcher, host=args.host, port=args.port,

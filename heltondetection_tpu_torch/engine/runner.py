@@ -1,27 +1,59 @@
-"""Model construction, the eval forward and ``load_detector``; counterpart
-of ``build_model``, ``_cfg_anchors``, ``_forward_for_eval`` (YOLOv5 branch),
-``_config_num_classes``, ``_load_eval_variables``, ``_make_detector`` and
-``load_detector`` in heltondetection_tpu/engine/runner.py. The train, eval
-and test orchestration (``run_train``, ``run_eval``, ``run_test``) comes
-with the training slice (ROADMAP A9)."""
+"""Runner: builds everything from an ExperimentConfig and owns the train
+loop, periodic eval, checkpointing and resume; counterpart of
+heltondetection_tpu/engine/runner.py.
+
+Ported: ``build_dataset``, ``build_model``, ``run_train`` (single process,
+one card) with its in-loop ``run_eval``, ``run_eval`` (single process, the
+fused route on kernel ``nms_fixpoint`` and the unfused one on ``nms_mask``),
+the eval forward and ``load_detector``. Parts not ported raise
+``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9, A13),
+the eval artifacts and ``dump_json`` (A9), ``device_aug``, DropBlock,
+remat and autoanchor (A8), the backbone registry and ``backbone_pretrain``
+(A10), the faster_rcnn family (A12), more than one device (A14), int8
+(A15).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
-from typing import Callable, Optional
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from heltondetection_tpu_torch.configs.base import (ExperimentConfig,
                                                     load_config)
 from heltondetection_tpu_torch.device import resolve_device
-from heltondetection_tpu_torch.models.yolov5 import YOLOv5, decode_full
+from heltondetection_tpu_torch.models.yolov5 import (YOLOv5, decode_full,
+                                                     pack_head_variables)
 from heltondetection_tpu_torch.ops.anchors import normalize_anchors
 from heltondetection_tpu_torch.utils import ckpt as ckpt_io
+from heltondetection_tpu_torch.utils.log import LOGGER, TBWriter, get_logger
 
-_log = logging.getLogger("heltondetection_tpu_torch")
+_log = logging.getLogger(LOGGER)
+
+
+def build_dataset(dc, split: str = "train"):
+    """The reader of ``split`` ("train" or "val") of a ``DataConfig``. COCO
+    only: the other formats raise (ROADMAP A6)."""
+    from heltondetection_tpu_torch.data.readers import (CachedDataset,
+                                                        COCODataset)
+    ann = dc.train_ann if split == "train" else dc.val_ann
+    imgs = dc.train_imgs if split == "train" else dc.val_imgs
+    if dc.format == "coco":
+        ds = COCODataset(ann, imgs)
+    elif dc.format in ("yolo", "dota", "voc", "visdrone"):
+        raise NotImplementedError(
+            f"the {dc.format} reader is not ported yet (ROADMAP A6)")
+    else:
+        raise ValueError(f"unknown dataset format {dc.format}")
+    if getattr(dc, "cache_images", False):
+        ds = CachedDataset(ds)
+    return ds
 
 
 def build_model(mc, num_classes: int) -> YOLOv5:
@@ -78,21 +110,24 @@ def forward_for_eval(model: YOLOv5, num_classes: int, anchors=None,
 
 
 def _config_num_classes(cfg: ExperimentConfig) -> int:
-    """The class count a train run of this config uses: explicit
-    ``data.class_names`` win, else ``cfg.model.num_classes``. The reference
-    also parses the val (or train) annotations for their category count
-    when they are mounted; that needs the dataset readers (ROADMAP A6), so
-    an annotation file that exists raises here rather than being ignored.
-    Annotations that are not mounted leave the config value in charge, as
-    in the reference (pure-inference hosts)."""
+    """The class count a train run of this config uses (``run_train``:
+    ``ds.num_classes or cfg.model.num_classes``), without a dataset object:
+    explicit ``data.class_names`` win, else the val (or train) annotations
+    are parsed for their category count, else ``cfg.model.num_classes``.
+    Annotations that are not mounted leave the config value in charge
+    (pure-inference hosts)."""
     if cfg.data.class_names:
         return len(cfg.data.class_names)
-    ann = cfg.data.val_ann or cfg.data.train_ann
-    if ann and os.path.exists(ann):
-        raise NotImplementedError(
-            f"deriving num_classes from the annotations at {ann} needs the "
-            f"dataset readers, which are not ported yet (ROADMAP A6); set "
-            f"data.class_names in the config")
+    if cfg.data.val_ann or cfg.data.train_ann:
+        split = "val" if cfg.data.val_ann else "train"
+        try:
+            nc = build_dataset(cfg.data, split).num_classes
+            if nc:
+                return nc
+        except (OSError, ValueError) as e:
+            _log.info("could not derive num_classes from %s annotations "
+                      "(%s); using cfg.model.num_classes=%d", split, e,
+                      cfg.model.num_classes)
     return cfg.model.num_classes
 
 
@@ -113,6 +148,363 @@ def _load_eval_variables(cfg: ExperimentConfig) -> dict:
 
 def _eval_state(saved: dict) -> dict:
     return saved["ema"] if saved["ema"] is not None else saved["model"]
+
+
+def _frozen_prefixes(mc) -> tuple:
+    """The optimizer's freeze set: the whole backbone for
+    ``freeze_backbone`` (the reference's frozen-backbone ablation)."""
+    return ("backbone",) if mc.freeze_backbone else ()
+
+
+def _net_like(model: YOLOv5, device, packed_head: bool = False) -> YOLOv5:
+    """An eval-mode YOLOv5 of ``model``'s shape on ``device`` (channels-last
+    weights), its weights left for a ``load_state_dict``."""
+    with torch.device("meta"):
+        net = YOLOv5(model.num_classes, model.depth_multiple,
+                     model.width_multiple, model.num_anchors, model.dtype,
+                     packed_head=packed_head)
+    return net.to_empty(device=device).to(
+        memory_format=torch.channels_last).eval()
+
+
+def _once(reuse: Dict, key: str, msg: str, *args) -> None:
+    if key not in reuse:
+        reuse[key] = True
+        _log.info(msg, *args)
+
+
+def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
+             verbose: bool = True, dump_json: Optional[str] = None,
+             _reuse: Optional[Dict] = None, *, device=None
+             ) -> Dict[str, float]:
+    """``--mode eval``: the val set → COCO AP, on ``device`` (CUDA unless
+    ``device="cpu"``), single process.
+
+    ``state_dict`` (with ``model``, a YOLOv5 of the right shape) is scored
+    directly; without it the config's checkpoint is loaded
+    (``cfg.eval.ckpt``: EMA weights when saved). ``eval.fused`` (default)
+    runs the packed-head serve step, whose NMS is kernel ``nms_fixpoint``;
+    off, ``forward_for_eval`` and ``make_postprocess`` (kernel
+    ``nms_mask``).
+
+    ``_reuse``: a dict owned by the caller (``run_train``'s in-loop eval)
+    that keeps the parsed val set (``"ds"``, which the caller may also
+    provide), the gt-registered ``DetEval`` (detections reset per call)
+    and the eval network and ``Evaluator`` across calls; each call loads
+    its weights into that network. Every call scores its own detections:
+    the port's ``DetEval.summarize`` accumulates anew each time, where the
+    reference's reused its first ``accumulate`` and reported stale stats.
+    """
+    from heltondetection_tpu_torch.data.augment import EvalPipeline
+    from heltondetection_tpu_torch.data.loader import EvalLoader
+    from heltondetection_tpu_torch.engine.evaluator import Evaluator
+    from heltondetection_tpu_torch.ops.postprocess import \
+        make_fused_postprocess
+    from heltondetection_tpu_torch.utils.cocoeval import (DetEval,
+                                                          format_summary)
+    dev = resolve_device(device)
+    if dump_json:
+        raise NotImplementedError(
+            "dump_json: the COCO results writer (cocoeval.to_coco_json) is "
+            "not ported yet (ROADMAP A9)")
+    reuse = {} if _reuse is None else _reuse
+    if getattr(cfg.eval, "int8", False):
+        if _reuse is None:
+            raise NotImplementedError(
+                "eval.int8 is not ported yet (ROADMAP A15)")
+        _once(reuse, "int8_note", "eval.int8 ignored for in-training eval "
+              "(float)")
+    if reuse.get("ds") is None:
+        reuse["ds"] = build_dataset(cfg.data, "val")
+    ds = reuse["ds"]
+    nc = ds.num_classes or cfg.model.num_classes
+    if state_dict is None:
+        model = build_model(cfg.model, nc)
+        state_dict = _load_eval_variables(cfg)
+    elif model is None:
+        model = build_model(cfg.model, nc)
+    fused = getattr(cfg.eval, "fused", True)
+    if "evaluator" not in reuse:
+        anchors = _cfg_anchors(cfg)
+        kw = dict(conf_thres=cfg.eval.conf_thres,
+                  iou_thres=cfg.eval.iou_thres, max_det=cfg.eval.max_det)
+        net = _net_like(model, dev, packed_head=fused)
+        if fused:
+            post = make_fused_postprocess(
+                nc, pre_nms_topk=1024,
+                max_cls_per_box=4 if cfg.eval.multi_label else 1,
+                **kw, **({} if anchors is None else {"anchors": anchors}))
+
+            def step(images):
+                return post(net(images.float() / 255.0))
+
+            ev = Evaluator(None, nc, step_fn=step, device=dev)
+        else:
+            ev = Evaluator(forward_for_eval(net, nc, anchors=anchors,
+                                            device=dev), nc,
+                           multi_label=cfg.eval.multi_label, device=dev,
+                           **kw)
+        reuse["net"], reuse["evaluator"] = net, ev
+    reuse["net"].load_state_dict(
+        pack_head_variables(state_dict, nc) if fused else state_dict)
+    det = reuse.get("det")
+    if det is None:
+        det = reuse["det"] = DetEval(nc)
+        ds.gt_for_eval(det)
+    else:
+        det.reset_dets()
+    if cfg.train.native_loader:
+        _once(reuse, "native_note", "the native eval loader is not ported "
+              "(ROADMAP A6); using the Python EvalPipeline")
+    with EvalLoader(EvalPipeline(ds, cfg.model.img_size),
+                    cfg.eval.batch_size,
+                    num_workers=cfg.train.num_workers) as loader:
+        stats = reuse["evaluator"].run(loader, det_eval=det, verbose=False)
+    if verbose:
+        _log.info("eval results for %s:\n%s", cfg.name, format_summary(stats))
+        _once(reuse, "artifacts_note", "the per-class table, confusion "
+              "matrix, PR curves and FLOPs count come with the next slice "
+              "(ROADMAP A9)")
+    return stats
+
+
+def _check_train_config(cfg: ExperimentConfig) -> None:
+    """Raise for the train options that are not ported, naming their
+    ROADMAP item."""
+    mc, tc = cfg.model, cfg.train
+    if mc.family != "yolov5":
+        raise NotImplementedError(
+            f"training the {mc.family} family is not ported yet (ROADMAP "
+            f"A12)")
+    todo = {
+        "model.dropblock_p > 0 (models/dropblock.py)": mc.dropblock_p > 0,
+        "model.remat": getattr(mc, "remat", False),
+        "train.device_aug (data/device_aug.py)": tc.device_aug,
+        "train.autoanchor (data/autoanchor.py)": tc.autoanchor,
+    }
+    for what, on in todo.items():
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A8)")
+    if tc.backbone_pretrain:
+        raise NotImplementedError("train.backbone_pretrain (ResNet weights "
+                                  "for the backbone registry) is not ported "
+                                  "yet (ROADMAP A10)")
+    if tc.spatial_shards > 1:
+        raise NotImplementedError("train.spatial_shards and every other "
+                                  "multi-device path are not ported yet "
+                                  "(ROADMAP A14)")
+
+
+def run_train(cfg: ExperimentConfig, resume: bool = True, *, device=None
+              ) -> Dict[str, float]:
+    """``--mode train``: :func:`train_from_datasets` on the config's train
+    and val readers, on ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    val_ds = build_dataset(cfg.data, "val") if cfg.data.val_ann else None
+    return train_from_datasets(cfg, build_dataset(cfg.data, "train"), val_ds,
+                               resume=resume, device=dev)
+
+
+def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
+                        resume: bool = True, *, device=None
+                        ) -> Dict[str, float]:
+    """Train ``cfg``'s model on ``train_ds`` (any reader: ``__len__``,
+    ``load``, ``num_classes``), scoring ``val_ds`` (a reader with
+    ``gt_for_eval``) every ``eval_interval`` epochs and at the end; returns
+    the best val stats (``{}`` without a val set).
+
+    AdamW with warmup and cosine decay, EMA, the host augmentation
+    pipeline and pinned uint8 uploads, checkpoints every
+    ``ckpt_interval`` epochs (the newest three kept) and a best-AP
+    snapshot in ``cfg.best_ckpt_dir`` with ``best.json`` beside the run;
+    ``resume`` continues from the newest checkpoint in ``cfg.ckpt_dir``.
+    Single process, one device."""
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step,
+                                                         multiscale_sizes,
+                                                         resize_batch_to)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+    dev = resolve_device(device)
+    _check_train_config(cfg)
+    accum = max(int(getattr(cfg.train, "grad_accum", 1)), 1)
+    if cfg.train.batch_size % accum:
+        raise ValueError(f"batch_size ({cfg.train.batch_size}) must be "
+                         f"divisible by grad_accum ({accum})")
+    logger = get_logger(log_file=os.path.join(cfg.log_dir, "train.log"))
+    tb = TBWriter(cfg.log_dir)
+    nc = train_ds.num_classes or cfg.model.num_classes
+    cfg.model.num_classes = nc
+    model = build_model(cfg.model, nc)
+    init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
+    model = model.to(dev, memory_format=torch.channels_last)
+
+    if cfg.train.native_loader:
+        logger.info("the native train loader is not ported (ROADMAP A6); "
+                    "using the Python TrainPipeline")
+    pipe = TrainPipeline(train_ds, cfg.model.img_size,
+                         mosaic_p=cfg.train.mosaic_p, hsv=cfg.train.hsv,
+                         flip_p=cfg.train.flip_p, mixup_p=cfg.train.mixup_p,
+                         max_boxes=cfg.data.max_boxes, seed=cfg.train.seed)
+    loader = TrainLoader(pipe, cfg.train.batch_size, seed=cfg.train.seed,
+                         num_workers=cfg.train.num_workers, device=dev)
+    steps_per_epoch = loader.steps_per_epoch()
+    if steps_per_epoch < 1:
+        raise ValueError(
+            f"dataset yields 0 steps/epoch: {len(train_ds)} images < "
+            f"batch_size {cfg.train.batch_size} — shrink train.batch_size "
+            "or add data")
+    opt = make_optimizer(
+        model, cfg.train.lr,
+        total_steps=steps_per_epoch * cfg.train.epochs,
+        warmup_steps=int(cfg.train.warmup_epochs * steps_per_epoch),
+        weight_decay=cfg.train.weight_decay,
+        final_lr_frac=cfg.train.final_lr_frac, grad_clip=cfg.train.grad_clip,
+        frozen_prefixes=_frozen_prefixes(cfg.model))
+    loss_cfg = YoloLossConfig(num_classes=nc, img_size=cfg.model.img_size,
+                              focal=cfg.train.focal,
+                              label_smoothing=cfg.train.label_smoothing,
+                              anchors=_cfg_anchors(cfg))
+    model.packed_train = True        # the same weights, the loss's layout
+    base_step = make_train_step(loss_cfg, use_ema=cfg.train.ema,
+                                accum_steps=accum)
+    step_fn = base_step
+    if cfg.train.multi_scale:
+        ms_sizes = multiscale_sizes(cfg.model.img_size,
+                                    cfg.train.multi_scale)
+        logger.info("multi-scale training over buckets %s", ms_sizes)
+
+        def step_fn(state, batch):
+            # the reference's seeded, resume-stable draw per global step
+            i = int(np.random.default_rng(
+                (cfg.train.seed << 20) ^ state.step).integers(len(ms_sizes)))
+            return base_step(state, resize_batch_to(batch, ms_sizes[i]))
+
+    if cfg.train.pretrain_ckpt:
+        n = ckpt_io.load_params_for_transfer(cfg.train.pretrain_ckpt, model)
+        logger.info("loaded %d transfer tensors from %s", n,
+                    cfg.train.pretrain_ckpt)
+    state = create_train_state(model, opt, use_ema=cfg.train.ema)
+
+    start_epoch = 0
+    if resume and ckpt_io.latest_step(cfg.ckpt_dir,
+                                      ckpt_io.STATE_FILE) is not None:
+        try:
+            ckpt_io.restore_state(cfg.ckpt_dir, state)
+            start_epoch = state.step // steps_per_epoch
+            logger.info("resumed from step %d (epoch %d)", state.step,
+                        start_epoch, extra={"resumed_step": state.step})
+        except (ValueError, KeyError) as e:
+            logger.warning("ignoring incompatible checkpoint in %s: %s",
+                           cfg.ckpt_dir, e)
+
+    logger.info("training %s: %d epochs x %d steps on %s", cfg.name,
+                cfg.train.epochs, steps_per_epoch, dev)
+    writer = ckpt_io.CheckpointWriter(cfg.ckpt_dir)
+    best_writer = ckpt_io.CheckpointWriter(cfg.best_ckpt_dir, max_to_keep=1)
+    try:
+        return _train_epochs(cfg, loader, step_fn, state, tb, logger,
+                             start_epoch, val_ds, dev, writer, best_writer)
+    finally:
+        loader.close()
+        for w in (writer, best_writer):
+            w.close()
+        tb.close()
+
+
+def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
+                  val_ds, dev, writer, best_writer) -> Dict[str, float]:
+    # a previous run's best (best.json) seeds the comparison, so a
+    # restarted run cannot overwrite a better one-slot snapshot
+    best: Dict[str, float] = _read_best_json(cfg)
+    patience = getattr(cfg.train, "patience", None)
+    best_epoch = start_epoch - 1     # a resumed run gets a fresh window
+    eval_reuse: Dict = {"ds": val_ds}
+    for epoch in range(start_epoch, cfg.train.epochs):
+        t0 = time.perf_counter()
+        agg: Dict[str, torch.Tensor] = {}
+        n_steps, wait = 0, 0.0
+        batches = loader.epoch(epoch)
+        while True:
+            tw = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - tw
+            if batch is None:
+                break
+            state, metrics = step_fn(state, batch)
+            n_steps += 1
+            # device sums: one host read per epoch, not one per step
+            for k, v in metrics.items():
+                agg[k] = agg.get(k, 0.0) + v
+        means = {k: float(v) / max(n_steps, 1) for k, v in agg.items()}
+        secs = time.perf_counter() - t0
+        tb.scalars(epoch, means, prefix="train/")
+        logger.info("epoch %d/%d  %.1fs (loader wait %.1fs)  %s", epoch + 1,
+                    cfg.train.epochs, secs, wait,
+                    "  ".join(f"{k}={v:.4f}" for k, v in means.items()),
+                    extra={"epoch_stats": {
+                        "epoch": epoch, "steps": n_steps, "step": state.step,
+                        "seconds": secs, "loader_wait_s": wait, **means}})
+
+        last = epoch == cfg.train.epochs - 1
+        stop = saved = False
+        if (epoch + 1) % cfg.train.ckpt_interval == 0 or last:
+            writer.save(state, state.step)
+            saved = True
+        if val_ds is not None and ((epoch + 1) % cfg.train.eval_interval == 0
+                                   or last):
+            weights = dict(state.model.state_dict())
+            if state.ema is not None:
+                weights.update(state.ema)
+            stats = run_eval(cfg, weights, state.model, verbose=False,
+                             _reuse=eval_reuse, device=dev)
+            tb.scalars(epoch, {"AP": stats["AP"], "AP50": stats["AP50"]},
+                       prefix="val/")
+            logger.info("epoch %d val: AP=%.4f AP50=%.4f (%.1f img/s)",
+                        epoch + 1, stats["AP"], stats["AP50"],
+                        stats["images_per_sec"],
+                        extra={"eval_stats": dict(stats, epoch=epoch)})
+            if stats.get("AP", 0) > best.get("AP", -1):
+                best, best_epoch = stats, epoch
+                best_writer.save(state, state.step)
+                _write_best_json(cfg, stats, state.step)
+                logger.info("epoch %d: new best AP=%.4f → %s", epoch + 1,
+                            stats["AP"], cfg.best_ckpt_dir)
+            elif patience is not None and epoch - best_epoch >= patience:
+                logger.info("early stop at epoch %d: no val AP improvement "
+                            "since epoch %d (patience %d); best AP=%.4f",
+                            epoch + 1, best_epoch + 1, patience,
+                            best.get("AP", 0.0))
+                stop = True
+                if not saved:   # the final weights, whatever the interval
+                    writer.save(state, state.step)
+        if stop:
+            break
+    return best
+
+
+def _best_json_path(cfg) -> str:
+    return os.path.join(cfg.work_dir, cfg.name, "best.json")
+
+
+def _write_best_json(cfg, stats: Dict[str, float], step: int) -> None:
+    path = _best_json_path(cfg)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"AP": stats["AP"], "AP50": stats["AP50"], "step": step},
+                  f)
+
+
+def _read_best_json(cfg) -> Dict[str, float]:
+    """The best val stats of an earlier run of this config, or {}."""
+    try:
+        with open(_best_json_path(cfg)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
 
 
 def load_detector(config, ckpt: Optional[str] = None, *, device=None,

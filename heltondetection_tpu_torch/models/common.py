@@ -1,11 +1,14 @@
 """Shared conv blocks (YOLOv5 v6.1 Conv/Bottleneck/C3/SPPF); counterpart of
 the float path of heltondetection_tpu/models/common.py.
 
-Tensors are NCHW (the serve step feeds channels_last memory). Convs hold
-their weights in the compute ``dtype``; BatchNorm keeps float32 parameters
-and statistics, as the reference keeps float32 master variables. BN uses
-the Ultralytics eps 1e-3 and torch momentum 0.03 (flax momentum 0.97).
-The int8 and calibration hooks come with the int8 slice.
+Tensors are NCHW (the serve step feeds channels_last memory). Every
+parameter and statistic is float32, as the reference keeps float32 master
+variables; ``dtype`` is the compute dtype only: a conv casts its weight to
+the dtype of its input when it runs, so a bfloat16 model trains float32
+weights. BN uses the Ultralytics eps 1e-3 and torch momentum 0.03 (flax
+momentum 0.97), and in training mode updates its running variance with the
+biased batch variance, as flax does (:class:`BatchNorm2d`). The int8 and
+calibration hooks come with the int8 slice.
 """
 
 from __future__ import annotations
@@ -54,21 +57,45 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose training mode is flax's ``nn.BatchNorm``: it
+    normalizes with the batch mean and biased variance (statistics in
+    float32 whatever the input dtype, the output in the input dtype) and
+    moves the running statistics toward the batch mean and the *biased*
+    batch variance; ``torch.nn.BatchNorm2d`` moves them toward the unbiased
+    one. Eval mode, and training with ``momentum=None`` (the cumulative
+    average that ``models.yolov5.calibrate_bn`` uses), are torch's own."""
+
+    def forward(self, x):
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class ConvBnAct(nn.Module):
-    """Conv → BN → SiLU, the universal YOLOv5 block ("Conv")."""
+    """Conv → BN → SiLU, the universal YOLOv5 block ("Conv"). The conv's
+    float32 weight is cast to the input's dtype where it is used."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
-                 groups: int = 1, act: bool = True, pad: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 groups: int = 1, act: bool = True, pad: int | None = None):
         super().__init__()
         p = autopad(kernel) if pad is None else pad
         self.conv = nn.Conv2d(cin, cout, kernel, stride, p, groups=groups,
-                              bias=False, dtype=dtype)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.03)
+                              bias=False)
+        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.03)
         self.act = act
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        c = self.conv
+        x = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding,
+                     c.dilation, c.groups)
+        x = self.bn(x)
         return F.silu(x) if self.act else x
 
 
@@ -76,11 +103,11 @@ class Bottleneck(nn.Module):
     """1x1 → 3x3 with optional residual add (YOLOv5 Bottleneck)."""
 
     def __init__(self, cin: int, cout: int, shortcut: bool = True,
-                 expansion: float = 0.5, dtype: torch.dtype = torch.float32):
+                 expansion: float = 0.5):
         super().__init__()
         hidden = int(cout * expansion)
-        self.cv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.cv2 = ConvBnAct(hidden, cout, 3, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, hidden, 1)
+        self.cv2 = ConvBnAct(hidden, cout, 3)
         self.add = shortcut and cin == cout
 
     def forward(self, x):
@@ -94,16 +121,15 @@ class C3(nn.Module):
     reference's flax scopes."""
 
     def __init__(self, cin: int, cout: int, n: int = 1, shortcut: bool = True,
-                 expansion: float = 0.5, dtype: torch.dtype = torch.float32):
+                 expansion: float = 0.5):
         super().__init__()
         hidden = int(cout * expansion)
-        self.cv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, hidden, 1)
         self.n = n
         for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(hidden, hidden, shortcut, 1.0,
-                                                dtype=dtype))
-        self.cv2 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.cv3 = ConvBnAct(2 * hidden, cout, 1, dtype=dtype)
+            self.add_module(f"m{i}", Bottleneck(hidden, hidden, shortcut, 1.0))
+        self.cv2 = ConvBnAct(cin, hidden, 1)
+        self.cv3 = ConvBnAct(2 * hidden, cout, 1)
 
     def forward(self, x):
         y1 = self.cv1(x)
@@ -115,12 +141,11 @@ class C3(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling — fast (3 chained 5x5 max-pools)."""
 
-    def __init__(self, cin: int, cout: int, pool: int = 5,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, cin: int, cout: int, pool: int = 5):
         super().__init__()
         hidden = cin // 2
-        self.cv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
-        self.cv2 = ConvBnAct(4 * hidden, cout, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(cin, hidden, 1)
+        self.cv2 = ConvBnAct(4 * hidden, cout, 1)
         self.pool = pool
 
     def forward(self, x):

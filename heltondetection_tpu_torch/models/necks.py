@@ -19,20 +19,19 @@ class PAFPNv5(nn.Module):
     """
 
     def __init__(self, depth_multiple: float = 0.33,
-                 width_multiple: float = 0.50,
-                 dtype: torch.dtype = torch.float32):
+                 width_multiple: float = 0.50):
         super().__init__()
-        w, dt = width_multiple, dtype
+        w = width_multiple
         n = depth(3, depth_multiple)
         c3, c4, c5 = scaled(256, w), scaled(512, w), scaled(1024, w)
-        self.lat5 = ConvBnAct(c5, c4, 1, dtype=dt)
-        self.td4 = C3(c4 + c4, c4, n, shortcut=False, dtype=dt)
-        self.lat4 = ConvBnAct(c4, c3, 1, dtype=dt)
-        self.td3 = C3(c3 + c3, c3, n, shortcut=False, dtype=dt)
-        self.bu3 = ConvBnAct(c3, c3, 3, 2, dtype=dt)
-        self.bu4 = C3(c3 + c3, c4, n, shortcut=False, dtype=dt)
-        self.bu5 = ConvBnAct(c4, c4, 3, 2, dtype=dt)
-        self.bu6 = C3(c4 + c4, c5, n, shortcut=False, dtype=dt)
+        self.lat5 = ConvBnAct(c5, c4, 1)
+        self.td4 = C3(c4 + c4, c4, n, shortcut=False)
+        self.lat4 = ConvBnAct(c4, c3, 1)
+        self.td3 = C3(c3 + c3, c3, n, shortcut=False)
+        self.bu3 = ConvBnAct(c3, c3, 3, 2)
+        self.bu4 = C3(c3 + c3, c4, n, shortcut=False)
+        self.bu5 = ConvBnAct(c4, c4, 3, 2)
+        self.bu6 = C3(c4 + c4, c5, n, shortcut=False)
 
     def forward(self, feats):
         c3, c4, c5 = feats

@@ -7,7 +7,7 @@ counterpart of heltondetection_tpu/models/yolov5.py.
 
 The model takes NHWC float images and returns the reference's layouts; the
 convs inside run NCHW. The head always runs in float32, whatever the compute
-``dtype`` of backbone and neck.
+``dtype`` of backbone and neck; parameters are float32 throughout.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from heltondetection_tpu_torch.device import resolve_device
 from heltondetection_tpu_torch.models.common import init_weights, scaled
@@ -38,12 +39,18 @@ class YOLOv5(nn.Module):
     (h, w))`` in anchor-major (a, y, x) row order: pobj carries the
     objectness logits, and each pcand row packs ``[cls₀..cls_{C-1}, tx, ty,
     tw, th, obj, pad]`` for one anchor. Packed weights come from a standard
-    state dict through :func:`pack_head_variables`."""
+    state dict through :func:`pack_head_variables`.
+
+    ``packed_train=True`` (an attribute that may be flipped; the weights
+    are the standard ``detect{i}`` convs either way, so a train checkpoint
+    is an eval checkpoint) returns the train layout of
+    :func:`packed_train_head` per level, which ``train.yolo_loss.
+    yolo_loss_packed`` consumes."""
 
     def __init__(self, num_classes: int = 80, depth_multiple: float = 0.33,
                  width_multiple: float = 0.50, num_anchors: int = 3,
                  dtype: torch.dtype = torch.float32,
-                 packed_head: bool = False):
+                 packed_head: bool = False, packed_train: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.depth_multiple = depth_multiple
@@ -51,8 +58,9 @@ class YOLOv5(nn.Module):
         self.num_anchors = num_anchors
         self.dtype = dtype
         self.packed_head = packed_head
-        self.backbone = CSPDarknet(depth_multiple, width_multiple, dtype)
-        self.neck = PAFPNv5(depth_multiple, width_multiple, dtype)
+        self.packed_train = packed_train
+        self.backbone = CSPDarknet(depth_multiple, width_multiple)
+        self.neck = PAFPNv5(depth_multiple, width_multiple)
         chans = [scaled(c, width_multiple) for c in (256, 512, 1024)]
         a = num_anchors
         if packed_head:
@@ -73,6 +81,11 @@ class YOLOv5(nn.Module):
         outs = []
         for i, f in enumerate(feats):
             f = f.float()
+            if self.packed_train and not self.packed_head:
+                conv = getattr(self, f"detect{i}")
+                outs.append(packed_train_head(f, conv.weight, conv.bias,
+                                              self.num_classes, a))
+                continue
             if not self.packed_head:
                 outs.append(getattr(self, f"detect{i}")(f).permute(0, 2, 3, 1))
                 continue
@@ -86,6 +99,32 @@ class YOLOv5(nn.Module):
                      .to(torch.bfloat16) for j in range(a)]
             outs.append((pobj, pcand, (h, w)))
         return outs
+
+
+def packed_train_head(f: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, num_classes: int,
+                      num_anchors: int = 3):
+    """The packed train head of one level; counterpart of the reference's
+    ``_PackedDetect``. ``f`` (B, cin, h, w) float32 and the standard
+    ``detect`` conv's ``weight`` (A·(5+C), cin, 1, 1) and ``bias`` →
+    ``(pobj (B, HW, A), f2 (B, HW, cin), [(ka (cin, CP), ba (CP)) per
+    anchor], (h, w))``: the dense objectness logits, the feature rows, and
+    per anchor its weight block with lanes ``[cls₀..cls_{C-1}, tx, ty, tw,
+    th, obj, 0-pad]``. The box and class logits are left to the loss, which
+    gathers the rows of its assigned cells and applies the blocks there
+    (row selection commutes with a 1×1 conv), so that branch, forward and
+    backward, runs over the candidates instead of the whole map."""
+    b, cin, h, w = f.shape
+    a_n, blk = num_anchors, 5 + num_classes
+    cp = packed_cls_width(num_classes)
+    f2 = f.permute(0, 2, 3, 1).reshape(b, h * w, cin)
+    k = weight[:, :, 0, 0].reshape(a_n, blk, cin)     # slices, no index copy
+    bia = bias.reshape(a_n, blk)
+    pobj = F.linear(f2, k[:, 4], bia[:, 4])                    # (B, HW, A)
+    wblocks = [(F.pad(torch.cat([k[a, 5:], k[a, :5]]).t(), (0, cp - blk)),
+                F.pad(torch.cat([bia[a, 5:], bia[a, :5]]), (0, cp - blk)))
+               for a in range(a_n)]
+    return pobj, f2, wblocks, (h, w)
 
 
 def pack_head_variables(state_dict: Dict[str, torch.Tensor],

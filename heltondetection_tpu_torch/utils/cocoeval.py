@@ -9,7 +9,7 @@ this consumes them.
 
 The greedy matcher is the numpy one. The reference's C++ matcher, the
 per-class table, the confusion matrix, the P/R/F1 curves, the COCO JSON
-export and the PNG savers come with the runner slice.
+export and the PNG savers are not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations

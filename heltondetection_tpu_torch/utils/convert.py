@@ -4,7 +4,10 @@ The port's module names follow the flax scopes (``backbone.c3_1.m0.cv1``,
 ``neck.td4``, ``detect0``, …), so the map is by name: conv kernels go HWIO →
 OIHW, dense kernels (cin, out) → (out, cin), BatchNorm ``scale``/``bias``
 and the ``batch_stats`` ``mean``/``var`` go to ``weight``/``bias`` and
-``running_mean``/``running_var``.
+``running_mean``/``running_var``. A train state maps too: its EMA
+parameters (:func:`from_jax_train_state`) and an optax ``adamw`` state's
+moments and count onto the port's optimizer (:func:`load_adamw_state`), so
+both packages can start from one state mid-training.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ _BN_NAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 def _leaves(tree: Any, prefix: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, array) of every array leaf; other leaves (optax's
+    ``MaskedNode`` of a frozen parameter) are skipped."""
     if hasattr(tree, "items"):
         for k, v in tree.items():
             yield from _leaves(v, prefix + (str(k),))
-    else:
+    elif hasattr(tree, "shape") and hasattr(tree, "dtype"):
         yield prefix, np.asarray(tree)
 
 
@@ -71,3 +76,60 @@ def checkpoint_from_jax_variables(variables: Any, ckpt_dir: str, step: int = 0,
             "batch_stats": variables.get("batch_stats", {})})
     return save_eval_variables(ckpt_dir, from_jax_variables(variables), step,
                                ema_state=ema)
+
+
+def from_jax_train_state(state: Any) -> Tuple[Dict[str, torch.Tensor],
+                                              Optional[Dict[str, torch.Tensor]]]:
+    """A reference ``TrainState`` (numpy leaves) → (the model's state dict,
+    the EMA parameters by name or None), the forms of
+    ``train.trainer.TrainState.model`` and ``.ema``."""
+    sd = from_jax_variables({"params": state.params,
+                             "batch_stats": state.batch_stats})
+    ema = None
+    if state.ema_params is not None:
+        ema = from_jax_variables({"params": state.ema_params})
+    return sd, ema
+
+
+def _adam_states(tree: Any) -> Iterator[Any]:
+    """Every optax ``ScaleByAdamState`` (it has ``mu``, ``nu`` and
+    ``count``) inside a nested optimizer state."""
+    if all(hasattr(tree, f) for f in ("mu", "nu", "count")):
+        yield tree
+    elif hasattr(tree, "items"):
+        for v in tree.values():
+            yield from _adam_states(v)
+    elif isinstance(tree, (tuple, list)):      # chains and NamedTuples
+        for v in tree:
+            yield from _adam_states(v)
+
+
+def load_adamw_state(opt_state: Any, optimizer, model: torch.nn.Module
+                     ) -> None:
+    """Carry an optax ``adamw`` state (numpy leaves; chained with clipping
+    or under ``multi_transform`` as the reference's ``make_optimizer``
+    builds it) onto the port's ``train.schedule.Optimizer`` over
+    ``model``: ``mu``/``nu`` become each parameter's ``exp_avg``/
+    ``exp_avg_sq`` (mapped by name like the weights), ``count`` the
+    ``step`` of every parameter the optimizer updates and the schedule's
+    position. Frozen parameters (masked in optax) get no state, as the
+    port keeps none for them."""
+    adam = list(_adam_states(opt_state))
+    if len(adam) != 1:
+        raise ValueError(f"expected one adam state, found {len(adam)}")
+    adam = adam[0]
+    mu = from_jax_variables({"params": adam.mu})
+    nu = from_jax_variables({"params": adam.nu})
+    count = int(np.asarray(adam.count))
+    names = {id(p): n for n, p in model.named_parameters()}
+    for group in optimizer.opt.param_groups:
+        for p in group["params"]:
+            n = names[id(p)]
+            optimizer.opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[n].to(p.device).reshape(p.shape),
+                "exp_avg_sq": nu[n].to(p.device).reshape(p.shape)}
+    sched = optimizer.sched
+    sched.last_epoch = count
+    for group, base in zip(optimizer.opt.param_groups, sched.base_lrs):
+        group["lr"] = base * sched.lr_lambdas[0](count)

@@ -12,6 +12,7 @@ the test.
 """
 
 import dataclasses
+import json
 import pathlib
 import textwrap
 
@@ -211,16 +212,19 @@ def test_not_ported_parts_raise_by_name(tmp_path):
         runner.build_model(mc(family="detr"), 20)
     m = runner.build_model(mc(variant="n", dtype="bfloat16"), 7)
     assert m.num_classes == 7 and m.dtype == torch.bfloat16
-    assert m.backbone.stem.conv.weight.dtype == torch.bfloat16
+    assert m.backbone.stem.conv.weight.dtype == torch.float32
 
     cfg = p_base.ExperimentConfig()
     assert runner._config_num_classes(cfg) == 80
     assert runner._cfg_anchors(cfg) is None
     ann = tmp_path / "val.json"
-    ann.write_text("{}")
+    ann.write_text(json.dumps({"images": [], "annotations": [], "categories": [
+        {"id": 3, "name": "a"}, {"id": 9, "name": "b"}]}))
     cfg = dataclasses.replace(cfg, data=p_base.DataConfig(val_ann=str(ann)))
-    with pytest.raises(NotImplementedError, match="A6"):
-        runner._config_num_classes(cfg)
+    assert runner._config_num_classes(cfg) == 2
+    cfg = dataclasses.replace(cfg, data=p_base.DataConfig(
+        val_ann=str(tmp_path / "not_mounted.json")))
+    assert runner._config_num_classes(cfg) == 80
     cfg = dataclasses.replace(
         cfg, data=p_base.DataConfig(val_ann=str(ann), class_names=["x"] * 3),
         model=mc(anchors=[[[1, 2], [3, 4], [5, 6]]] * 3))
@@ -241,8 +245,7 @@ def test_lazy_exports_and_cli(tiny_variant, tmp_path, monkeypatch):
         heltondetection_tpu_torch.no_such_name
 
     cfg_path = _write_config(tmp_path)
-    for mode, item in (("train", "A6"), ("eval", "A9"), ("test", "A9"),
-                       ("export", "A13")):
+    for mode, item in (("test", "A9"), ("export", "A13")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["--mode", mode, "--config", cfg_path])
 

@@ -200,7 +200,8 @@ def test_packed_head_matches_flax(pair):
 
 def test_build_yolov5_seeded_and_dtyped():
     """Random init comes from the generator alone; the compute dtype reaches
-    the convs while BN and the head stay float32."""
+    the convs while every parameter (the conv weights too: float32 master
+    weights, cast where they are used) and the head stay float32."""
     def build(seed):
         return build_yolov5("n", 3, dtype=torch.bfloat16, device="cpu",
                             generator=torch.Generator().manual_seed(seed))
@@ -209,11 +210,14 @@ def test_build_yolov5_seeded_and_dtyped():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["backbone.stem.conv.weight"],
                            sc["backbone.stem.conv.weight"])
-    assert sa["backbone.stem.conv.weight"].dtype == torch.bfloat16
-    assert sa["backbone.stem.bn.weight"].dtype == torch.float32
-    assert sa["detect0.weight"].dtype == torch.float32
+    assert all(v.dtype == torch.float32 for k, v in sa.items()
+               if v.is_floating_point())
     assert not a.training
+    seen = []
+    a.backbone.stem.bn.register_forward_hook(
+        lambda m, inp, out: seen.append((inp[0].dtype, out.dtype)))
     with torch.no_grad():
         out = a(torch.from_numpy(images((1, 64, 64, 3), seed=4)))
+    assert seen == [(torch.bfloat16, torch.bfloat16)]
     assert all(o.dtype == torch.float32 and torch.isfinite(o).all()
                for o in out)
