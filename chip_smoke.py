@@ -87,6 +87,36 @@ fails:
         one thread against eight, differs by 2.3e-5 and 5.3e-4: BatchNorm's
         backward over two images sums terms that cancel); BN running
         statistics within 5e-5 (relative, at least 1 absolute);
+   f. every YOLOv5 config (from PR 6):
+      1. the published yolov5_s_visdrone_1280 (YOLOv5s, 10 classes,
+         1280², B=16, lr 1e-3, mosaic 0.5, bf16) with train.device_aug and
+         train.autoanchor on, through run_train and the VisDrone reader on
+         annotation files written to a temporary directory (32 train and
+         16 val frames of 1080×1920 and 765×1360, 20–60 objects of 2–60 px,
+         ignored regions and "others" rows; the frames stay in memory and
+         the reader's imread_rgb is replaced by a lookup by path), 2 epochs
+         × 2 steps: metrics finite, the in-loop eval launching nms_fixpoint
+         after each epoch over 16 string image ids with the ignore regions
+         in its DetEval, the refit anchors equal to check_anchors' on the
+         same labels and served by load_detector (its dets equal a
+         Detector's with those anchors and differ from the default
+         anchors'); device_augment_batch on one batch of 16 on the card
+         equal to its CPU run on the same draws (pixels within 1e-5, boxes
+         within 1e-4 px, classes and masks exactly); then the 1280² step's
+         ms, idle share and peak memory with device_aug's ms inside it,
+         and DeviceAugPipeline's host img/s against TrainPipeline's (1280²,
+         mosaic 0.5, 8 threads);
+      2. the published yolov5_s_coco_640_dropblock (DropBlock 0.5, B=16):
+         one step with model.remat off and one with it on from the same
+         state and DropBlock draws: the loss within 1e-5 relative, every
+         gradient within 1e-4 of the global gradient norm, BatchNorm
+         running statistics and counts equal; drop_block on the card equal
+         to its CPU run on the same uniform draws (masks exactly, values
+         within 1e-6); both steps' ms and peak memory;
+      3. the fused serve step above nms_fixpoint's largest N
+         (pre_nms_topk=2401, 8 frames at 640²): nms_mask must launch and
+         nms_fixpoint must not, and the dets must equal the plain NMS's
+         on the same candidates;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -110,10 +140,12 @@ fails:
    computes greedy NMS or a pairwise IoU matrix (there is no torchvision),
    so library_ms is null for every kernel.
 
-The lines before the last are the serve, eval, serving and train lines,
-the kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the
-in-loop eval's launches as launches_train_eval), and the card's nvidia-smi
-line; the last line is {"ok": true, "device": {...}}.
+The lines before the last are the serve, eval, serving, train and
+train_configs lines, the kernels line, {"kernels": [...]} (nms_fixpoint's
+entry counts the in-loop evals' launches as launches_train_eval and
+launches_train_eval_visdrone_1280, nms_mask's the fused route's above
+N=2400 as launches_fused_route_n2401), and the card's nvidia-smi line; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -797,6 +829,452 @@ def train_phase(dev, smi: str) -> dict:
     return out
 
 
+VISDRONE_SIZES = [(1080, 1920), (765, 1360)]
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "heltondetection_tpu_torch", "configs")
+VISDRONE_CONFIG = os.path.join(CONFIGS, "yolov5_s_visdrone_1280.py")
+DROPBLOCK_CONFIG = os.path.join(CONFIGS, "yolov5_s_coco_640_dropblock.py")
+
+
+def write_visdrone(root: str, n: int, seed: int) -> dict:
+    """Write a VisDrone2019-DET layout under root (images/, annotations/)
+    for n seeded frames of VisDrone's sizes (1080×1920 and 765×1360): each
+    annotation file holds 20–60 objects 2–40 px wide and up to 2.5 times
+    as tall (at most 60 px), as VisDrone's distant people and cars are,
+    with scores 1 and categories 1–10, two ignored regions (score 0,
+    category 0) and one "others" row (category 11). With objects of 3 px
+    and more the default anchors fit (best possible recall above 0.98 at
+    1280²); the boxes under 4 px wide bring it below, so they are refit.
+    The image files are empty: the card's machine promises no image
+    decoder, so the frames stay in memory, returned as {path: (H, W, 3)
+    uint8}, with each object painted in its category's colour on uint8
+    noise."""
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    ann_dir = os.path.join(root, "annotations")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    palette = rng.integers(0, 256, (12, 3)).astype(np.uint8)
+    frames = {}
+    for i in range(n):
+        h, w = VISDRONE_SIZES[i % len(VISDRONE_SIZES)]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        k = int(rng.integers(20, 61))
+        bw = np.exp(rng.uniform(np.log(2.0), np.log(40.0), k))
+        bh = np.minimum(bw * rng.uniform(1.0, 2.5, k), 60.0)
+        x = rng.uniform(0, w - bw)
+        y = rng.uniform(0, h - bh)
+        cat = rng.integers(1, 11, k)
+        rows = [(x[j], y[j], bw[j], bh[j], 1, cat[j]) for j in range(k)]
+        for _ in range(2):                 # ignored regions
+            rw, rh = rng.uniform(40, 120, 2)
+            rows.append((rng.uniform(0, w - rw), rng.uniform(0, h - rh),
+                         rw, rh, 0, 0))
+        rows.append((rng.uniform(0, w - 30), rng.uniform(0, h - 30), 20.0,
+                     25.0, 1, 11))         # "others"
+        lines = []
+        for rx, ry, rw, rh, score, c in rows:
+            x0, y0 = int(rx), int(ry)
+            x1, y1 = int(rx + rw) + 1, int(ry + rh) + 1
+            img[y0:y1, x0:x1] = palette[c]
+            lines.append(f"{x0},{y0},{x1 - x0},{y1 - y0},{score},{c},0,0")
+        stem = f"{seed:04d}_{i:05d}"
+        path = os.path.join(img_dir, stem + ".jpg")
+        open(path, "wb").close()
+        with open(os.path.join(ann_dir, stem + ".txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        frames[path] = img
+    return frames
+
+
+class RecordedDetEvals:
+    """Replaces utils.cocoeval.DetEval with a subclass that keeps every
+    instance the run makes, so the in-loop eval's ground truth can be read
+    after the run."""
+
+    def __init__(self):
+        from heltondetection_tpu_torch.utils import cocoeval
+        self.module, self.orig, self.made = cocoeval, cocoeval.DetEval, []
+        made = self.made
+
+        class Recorded(self.orig):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        cocoeval.DetEval = Recorded
+
+    def close(self):
+        self.module.DetEval = self.orig
+
+
+def visdrone_phase(dev, smi: str) -> dict:
+    """Phase 4f.1: the published yolov5_s_visdrone_1280 config through
+    run_train with device_aug and autoanchor on VisDrone-format files, the
+    card against the CPU for device_augment_batch, and the 1280² step's
+    times. Returns the JSON fields.
+
+    The card's machine has no image decoder, so the phase replaces only
+    the reader module's ``imread_rgb`` with a lookup of the in-memory
+    frames by path (:func:`write_visdrone`); every annotation file is
+    parsed by ``VisDroneDataset``'s own code, through ``build_dataset``."""
+    import dataclasses
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.configs.base import load_config
+    from heltondetection_tpu_torch.data import readers
+    from heltondetection_tpu_torch.data.augment import (DeviceAugPipeline,
+                                                        TrainPipeline)
+    from heltondetection_tpu_torch.data.autoanchor import check_anchors
+    from heltondetection_tpu_torch.data.device_aug import (
+        device_augment_batch, sample_draws)
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    from heltondetection_tpu_torch.engine import runner
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+    from heltondetection_tpu_torch.utils import ckpt as ckpt_io
+
+    published = load_config(VISDRONE_CONFIG)
+    out = {"card": smi, "config": os.path.basename(VISDRONE_CONFIG)}
+    records = LogRecords()
+    evals = RecordedDetEvals()
+    read_orig = readers.imread_rgb
+    late_reads = []
+
+    def read_after_close(path):
+        # every loader of the phase is closed by now: a read here comes from
+        # a worker thread that outlived its loader's close()
+        late_reads.append(path)
+        raise FileNotFoundError(path)
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        frames = write_visdrone(os.path.join(work, "train"), 32, 20)
+        frames.update(write_visdrone(os.path.join(work, "val"), 16, 21))
+        log(f"VisDrone files: 32 + 16 frames in "
+            f"{time.perf_counter() - t0:.2f} s")
+        readers.imread_rgb = frames.__getitem__
+        try:
+            cfg = dataclasses.replace(
+                published, work_dir=os.path.join(work, "runs"),
+                data=dataclasses.replace(
+                    published.data,
+                    train_ann=os.path.join(work, "train", "annotations"),
+                    train_imgs=os.path.join(work, "train", "images"),
+                    val_ann=os.path.join(work, "val", "annotations"),
+                    val_imgs=os.path.join(work, "val", "images")),
+                model=dataclasses.replace(published.model),
+                train=dataclasses.replace(
+                    published.train, epochs=2, device_aug=True,
+                    autoanchor=True, eval_interval=1, ckpt_interval=1,
+                    num_workers=8))
+            mc, tc = cfg.model, cfg.train
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            best = runner.run_train(cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            epochs = records.field("epoch_stats")
+            ev_stats = records.field("eval_stats")
+            fitted = records.field("autoanchor")
+            train_ds = runner.build_dataset(cfg.data, "train")
+            want, st = check_anchors(train_ds, img_size=mc.img_size,
+                                     anchors=None, seed=tc.seed)
+            # load_detector of the run: the refit anchors, not the default
+            served = runner.load_detector(cfg, ckpt=cfg.ckpt_dir,
+                                          device=dev)
+            net = runner.build_model(mc, 10)
+            net.load_state_dict(runner._eval_state(
+                ckpt_io.restore_eval_variables(cfg.ckpt_dir)))
+            probe = [frames[p] for p in sorted(frames)[-2:]]
+            by_hand = runner._make_detector(cfg, net, 10, device=dev)
+            default = runner._make_detector(dataclasses.replace(
+                cfg, model=dataclasses.replace(mc, anchors=None)), net, 10,
+                device=dev)
+            got = served.detect_batch(probe)
+            same = all(same_dets(g, w) for g, w in
+                       zip(got, by_hand.detect_batch(probe)))
+            moved = not all(same_dets(g, w) for g, w in
+                            zip(got, default.detect_batch(probe)))
+
+            # one fixed batch: device_augment_batch on the card == on CPU
+            pipe = DeviceAugPipeline(train_ds, mc.img_size,
+                                     max_boxes=cfg.data.max_boxes,
+                                     seed=tc.seed, mosaic_p=tc.mosaic_p)
+            loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
+                                 num_workers=8, device=dev,
+                                 keys=TrainLoader.DEVICE_AUG_KEYS)
+            t0 = time.perf_counter()
+            batches = loader.host_batches(0)
+            host = [next(batches) for _ in range(2)]
+            batches.close()
+            dev_aug_ips = 2 * tc.batch_size / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            plain_loader = TrainLoader(
+                TrainPipeline(train_ds, mc.img_size, mosaic_p=tc.mosaic_p,
+                              max_boxes=cfg.data.max_boxes, seed=tc.seed),
+                tc.batch_size, seed=tc.seed, num_workers=8, device=dev)
+            batches = plain_loader.host_batches(0)
+            next(batches)
+            batches.close()
+            host_ips = tc.batch_size / (time.perf_counter() - t0)
+        finally:
+            readers.imread_rgb = read_after_close
+            records.close()
+            evals.close()
+    log(f"run_train {out['config']} (1280², B=16, device_aug, autoanchor): "
+        f"{wall:.1f} s; epochs "
+        f"{[(e['epoch'], e['steps'], round(e['total'], 4)) for e in epochs]}"
+        f"; in-loop AP {[round(e['AP'], 6) for e in ev_stats]}; launches "
+        f"{counts}; autoanchor {st}")
+    finite = all(math.isfinite(v) for e in epochs for v in e.values()
+                 if isinstance(v, float))
+    if not finite or [e["steps"] for e in epochs] != [2, 2]:
+        raise AssertionError(f"run_train epochs: {epochs}")
+    if len(ev_stats) != 2 or counts["nms_fixpoint"] < 4 or \
+            best.get("num_images") != 16:
+        raise AssertionError("the in-loop eval did not run after each epoch "
+                             "over the 16 val frames through nms_fixpoint")
+    gts = [d for d in evals.made if d._gts]
+    ignore = sum(g[3] for d in gts for v in d._gts.values() for g in v)
+    ids = {img for d in gts for img, _ in d._gts}
+    if len(gts) != 1 or ignore < 16 * 3 * 10 or len(ids) != 16 or \
+            not all(isinstance(i, str) for i in ids):
+        raise AssertionError(f"the eval's DetEval got {ignore} ignore rows "
+                             f"over ids {sorted(ids)}")
+    if want is None or st["prev_bpr"] >= 0.98 or \
+            mc.anchors != want or not fitted or \
+            fitted[0]["anchors"] != want:
+        raise AssertionError(f"autoanchor: the run's {mc.anchors} against "
+                             f"check_anchors' {want} ({st})")
+    if not same or not moved:
+        raise AssertionError("load_detector does not serve the run with its "
+                             "refit anchors")
+    log(f"in-loop eval: {ignore} ignore rows reach DetEval over 16 string "
+        f"ids; refit anchors == check_anchors on the same labels (BPR "
+        f"{st['prev_bpr']:.4f} → {st['bpr']:.4f}); load_detector uses them "
+        f"(dets differ from the default anchors')")
+
+    # the card equals the CPU: device_augment_batch on one fixed batch with
+    # the same draws (mixup on too, so its path is held as well)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()}
+    draws = sample_draws(tc.batch_size, mc.img_size,
+                         torch.Generator(dev).manual_seed(5),
+                         flip_p=tc.flip_p, mixup_p=0.5)
+    on_card = device_augment_batch(batch, draws, hsv=tc.hsv)
+    cpu_draws = dataclasses.replace(draws, **{
+        f.name: getattr(draws, f.name).cpu()
+        for f in dataclasses.fields(draws)})
+    on_cpu = device_augment_batch({k: v.cpu() for k, v in batch.items()},
+                                  cpu_draws, hsv=tc.hsv)
+    px_err = float((on_card["image"].cpu() - on_cpu["image"]).abs().max())
+    box_err = float((on_card["gt_boxes"].cpu() -
+                     on_cpu["gt_boxes"]).abs().max())
+    exact = all(torch.equal(on_card[k].cpu(), on_cpu[k])
+                for k in ("gt_cls", "gt_mask"))
+    log(f"device_augment_batch B=16 1280², card vs CPU, same draws: pixels "
+        f"{px_err:.3g}, boxes {box_err:.3g} px, classes and masks equal: "
+        f"{exact}")
+    if not (px_err <= 1e-5 and box_err <= 1e-4 and exact):
+        raise AssertionError("device_augment_batch on the card differs from "
+                             "the CPU")
+    del on_cpu, cpu_draws
+
+    # times: the 1280² step as run_train builds it, device_aug inside it
+    model = runner.build_model(mc, 10)
+    init_weights(model, torch.Generator().manual_seed(tc.seed))
+    model = model.to(dev, memory_format=torch.channels_last)
+    model.packed_train = True
+    state = create_train_state(model, make_optimizer(
+        model, tc.lr, total_steps=100, warmup_steps=10))
+    step = make_train_step(YoloLossConfig(
+        num_classes=10, img_size=mc.img_size, anchors=runner._cfg_anchors(
+            cfg)), seed=tc.seed)
+    augmented = runner._device_augment(cfg, dev)
+
+    def train_step():
+        return step(state, augmented(state.step, batch))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(train_step, 5, warmup=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    aug_ms = cuda_ms(lambda: augmented(0, batch), 5, warmup=1)
+    rows = device_kernels(train_step, 2)
+    busy = sum(ms for _, ms in rows)
+    aug_rows = device_kernels(lambda: augmented(0, batch), 2)
+    aug_busy = sum(ms for _, ms in aug_rows)
+    out["run_train"] = {
+        "wall_s": wall, "epochs_s": [e["seconds"] for e in epochs],
+        "loader_wait_s": [e["loader_wait_s"] for e in epochs],
+        "eval_img_per_s": [e["images_per_sec"] for e in ev_stats],
+        "launches": counts, "autoanchor": st,
+        "anchors": [list(map(list, lv)) for lv in mc.anchors],
+        "ignore_rows_in_det_eval": ignore}
+    out["step_b16_1280"] = {
+        "ms": step_ms, "img_per_s": 16e3 / step_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / step_ms,
+        "top_kernels": [[k[:80], ms] for k, ms in rows[:8]],
+        "max_memory_allocated_bytes": peak,
+        "device_aug_ms": aug_ms, "device_aug_busy_ms": aug_busy}
+    out["host_img_per_s_1280_mosaic05"] = {
+        "DeviceAugPipeline": dev_aug_ips, "TrainPipeline": host_ips,
+        "workers": 8}
+    out["device_aug_card_vs_cpu"] = {"pixel_err": px_err,
+                                     "box_err_px": box_err}
+    log(f"train step B=16 1280² bf16 (device_aug inside) on {smi}: "
+        f"{step_ms:.3f} ms, {16e3 / step_ms:.1f} img/s | device busy "
+        f"{busy:.3f} ms, idle share {1.0 - busy / step_ms:.3f} | peak memory "
+        f"{peak / 2**30:.2f} GiB | device_aug {aug_ms:.3f} ms (busy "
+        f"{aug_busy:.3f})")
+    log(f"host at 1280², mosaic 0.5, 8 threads: DeviceAugPipeline "
+        f"{dev_aug_ips:.1f} img/s, TrainPipeline {host_ips:.1f} img/s")
+    readers.imread_rgb = read_orig
+    if late_reads:
+        raise AssertionError(f"{len(late_reads)} frames were read after "
+                             f"their loader was closed: {late_reads[:4]}")
+    return out
+
+
+def dropblock_phase(dev, smi: str) -> dict:
+    """Phase 4f.2: the published yolov5_s_coco_640_dropblock config
+    (DropBlock 0.5) at full width, one train step with remat off and on from
+    the same state and the same DropBlock draws, DropBlock's mask on the
+    card against the CPU, and both steps' times and peak memory."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.configs.base import load_config
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.engine import runner
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.models.dropblock import drop_block
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+
+    cfg = load_config(DROPBLOCK_CONFIG)
+    mc, tc = cfg.model, cfg.train
+    size = mc.img_size
+    pipe = TrainPipeline(SynthFrames(16, 12), size, mosaic_p=0.0, hsv=False,
+                         flip_p=0.0, max_boxes=128)
+    host = [pipe.sample(i) for i in range(tc.batch_size)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in host])).to(dev)
+             for k in host[0]}
+    loss_cfg = YoloLossConfig(num_classes=80, img_size=size)
+    runs = {}
+    for remat in (False, True):
+        model = runner.build_model(dataclasses.replace(mc, remat=remat), 80)
+        init_weights(model, torch.Generator().manual_seed(tc.seed))
+        model = model.to(dev, memory_format=torch.channels_last)
+        model.packed_train = True
+        state = create_train_state(model, make_optimizer(
+            model, tc.lr, total_steps=100, warmup_steps=10))
+        step = make_train_step(loss_cfg, seed=tc.seed)
+        _, met = step(state, batch)
+        met = {k: float(v) for k, v in met.items()}
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+                 if "running" in k or "num_batches" in k}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: step(state, batch), 5, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        runs[remat] = (met, grads, stats, ms, peak)
+        del model, state, step
+    (m0, g0, s0, ms0, pk0), (m1, g1, s1, ms1, pk1) = runs[False], runs[True]
+    loss_err = abs(m1["total"] - m0["total"]) / abs(m0["total"])
+    gnorm = m0["grad_norm"]
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(g0, g1)) / gnorm
+    stats_equal = all(torch.equal(s0[k], s1[k]) for k in s0)
+    log(f"{os.path.basename(DROPBLOCK_CONFIG)} B=16 640², remat on vs off, "
+        f"same state and DropBlock draws: loss {loss_err:.3g} relative, "
+        f"grads {grad_err:.3g} of the global norm, BN running statistics "
+        f"equal: {stats_equal}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4 and stats_equal):
+        raise AssertionError("the remat step differs from the plain step")
+    del g0, g1
+
+    # DropBlock on the card == on the CPU, the same uniform draws (a c3
+    # feature map of the batch: 16 x 128 x 80 x 80)
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(16, 128, 80, 80, device=dev, generator=g).to(
+        memory_format=torch.channels_last)
+    u = torch.rand(16, 74, 74, 128, device=dev, generator=g).permute(
+        0, 3, 1, 2)
+    on_card = drop_block(x, u, mc.dropblock_p).cpu()
+    on_cpu = drop_block(x.cpu(), u.cpu(), mc.dropblock_p)
+    mask_equal = torch.equal(on_card == 0, on_cpu == 0)
+    val_err = float(((on_card - on_cpu).abs() /
+                     on_cpu.abs().clamp(min=1.0)).max())
+    dropped = float((on_card == 0).float().mean())
+    log(f"drop_block card vs CPU (16x128x80x80, p {mc.dropblock_p}): masks "
+        f"equal {mask_equal}, values {val_err:.3g}, dropped {dropped:.4f}")
+    if not mask_equal or val_err > 1e-6:
+        raise AssertionError("drop_block on the card differs from the CPU")
+    log(f"DropBlock step B=16 640² bf16 on {smi}: remat off {ms0:.3f} ms, "
+        f"{pk0 / 2**30:.2f} GiB | remat on {ms1:.3f} ms, "
+        f"{pk1 / 2**30:.2f} GiB")
+    return {"card": smi, "config": os.path.basename(DROPBLOCK_CONFIG),
+            "remat_vs_plain": {"loss_rel_err": loss_err,
+                               "grad_err_of_global_norm": grad_err,
+                               "bn_stats_equal": stats_equal},
+            "drop_block_card_vs_cpu": {"masks_equal": mask_equal,
+                                       "value_err": val_err,
+                                       "dropped_share": dropped},
+            "step_b16_640": {
+                "remat_off": {"ms": ms0, "max_memory_allocated_bytes": pk0},
+                "remat_on": {"ms": ms1, "max_memory_allocated_bytes": pk1}}}
+
+
+def c1_phase(dev, model, thr: float) -> dict:
+    """Phase 4f.3: the fused serve step above nms_fixpoint's largest N
+    (pre_nms_topk=2401 at 640², 8 frames) goes through nms_mask, and its
+    dets equal the plain NMS's on the same candidates."""
+    import torch
+    from heltondetection_tpu_torch.engine.evaluator import \
+        make_packed_serve_step
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.yolov5 import packed_copy
+    from heltondetection_tpu_torch.ops.postprocess import (
+        fused_select_decode_packed, nms_sorted_candidates)
+    step = make_packed_serve_step(model, 80, conf_thres=0.001,
+                                  iou_thres=thr, pre_nms_topk=2401,
+                                  device=dev)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (8, 640, 640, 3)).astype(np.uint8)).to(dev)
+    step(x)                                     # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [t.cpu() for t in step(x)]
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    packed = packed_copy(model).to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        cands = fused_select_decode_packed(packed(x.float() / 255.0), 80,
+                                           topk=2401, conf_thres=0.001)
+        plain = nms_sorted_candidates(*(t.cpu() for t in cands),
+                                      iou_thres=thr, max_det=None)
+    equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    n_valid = int((cands[1] > 0).sum())
+    log(f"fused serve step at pre_nms_topk=2401 (B=8, 640²): launches "
+        f"{counts}; dets == plain NMS dets: {equal} ({int(plain[3].sum())} "
+        f"kept of {n_valid} candidates)")
+    if counts["nms_mask"] < 1 or counts["nms_fixpoint"] != 0 or not equal:
+        raise AssertionError("the fused route above N=2400 did not go "
+                             "through nms_mask or its dets differ")
+    return {"launches": counts, "kept": int(plain[3].sum()),
+            "candidates": n_valid}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1378,6 +1856,15 @@ def main() -> int:
     # card against the CPU, the train step's times
     train = train_phase(dev, smi)
     log(f"[phase 4e done at {time.perf_counter() - t_start:.1f} s]")
+    # 4f. every YOLOv5 config: VisDrone at 1280² through run_train with
+    # device_aug and autoanchor, DropBlock with remat off and on at 640²,
+    # and the fused route above nms_fixpoint's largest N
+    visdrone = visdrone_phase(dev, smi)
+    log(f"[phase 4f.1 done at {time.perf_counter() - t_start:.1f} s]")
+    dropblock = dropblock_phase(dev, smi)
+    log(f"[phase 4f.2 done at {time.perf_counter() - t_start:.1f} s]")
+    c1 = c1_phase(dev, model, thr)
+    log(f"[phase 4f.3 done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -1584,6 +2071,8 @@ def main() -> int:
         "launches_tta": tta_counts["nms_fixpoint"],
         "launches_batching": batch_counts["nms_fixpoint"],
         "launches_train_eval": train["run_train"]["launches_nms_fixpoint"],
+        "launches_train_eval_visdrone_1280":
+            visdrone["run_train"]["launches"]["nms_fixpoint"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
@@ -1604,6 +2093,7 @@ def main() -> int:
         "source": "heltondetection_tpu_torch/csrc/nms_mask.cu",
         "replaces": "heltondetection_tpu/ops/nms.py:145",
         "launches": eval_counts["unfused"]["nms_mask"],
+        "launches_fused_route_n2401": c1["launches"]["nms_mask"],
         "max_abs_err": mask_err,
         "shape": [32, 1024, 4],
         "ms": m32["ms"], "plain_ms": m32["plain_ms"],
@@ -1661,6 +2151,9 @@ def main() -> int:
     log(json.dumps({"eval": evals}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"train_configs": {"visdrone_1280": visdrone,
+                                      "dropblock_640": dropblock,
+                                      "fused_route_n2401": c1}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

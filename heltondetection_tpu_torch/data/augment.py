@@ -1,5 +1,7 @@
 """Host-side augmentation: mosaic-4, random affine, HSV, flip, mixup,
-letterbox; counterpart of heltondetection_tpu/data/augment.py.
+letterbox, and the host half of the on-device augmentation
+(:class:`DeviceAugPipeline`); counterpart of
+heltondetection_tpu/data/augment.py.
 
 Every op draws from an explicit ``np.random.Generator`` seeded per (seed,
 epoch, index), in the reference's order, so the same seed gives the same
@@ -424,6 +426,54 @@ class TrainPipeline:
             cl[:n] = classes[:n]
             mask[:n] = True
         return {"image": img, "gt_boxes": gt, "gt_cls": cl, "gt_mask": mask}
+
+
+class DeviceAugPipeline:
+    """The host half of the on-device augmentation (``data.device_aug``):
+    per sample, the mosaic coin, then the sample itself and, when the
+    mosaic fires, three seeded-random others, each letterboxed to the
+    train size, as raw uint8 tiles with their boxes. Every other random
+    choice (crop offset, flip, colour jitter, mixup) is made on the card.
+    Tiles 1–3 are read only when the mosaic fires: reading images is the
+    host's main cost, so at ``mosaic_p`` 0.5 this halves it."""
+
+    def __init__(self, dataset, img_size: int, *, max_boxes: int = 32,
+                 seed: int = 0, mosaic_p: float = 1.0):
+        self.ds = dataset
+        self.img_size = img_size
+        self.max_boxes = max_boxes
+        self.seed = seed
+        self.mosaic_p = mosaic_p
+
+    def __len__(self):
+        return len(self.ds)
+
+    def sample(self, idx: int, epoch: int = 0) -> Dict:
+        """``images4`` (4, S, S, 3) uint8 (unused tiles grey 114),
+        ``boxes4`` (4, M, 4) xyxy in tile pixels, ``cls4``, ``mask4`` (4,
+        M) and ``mosaic4``, the coin, for sample ``idx`` of ``epoch``."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, idx]))
+        s, m = self.img_size, self.max_boxes
+        use_mosaic = bool(rng.uniform() < self.mosaic_p)
+        ids = [idx]
+        if use_mosaic:
+            ids += [int(j) for j in rng.integers(0, len(self.ds), 3)]
+        images = np.full((4, s, s, 3), 114, np.uint8)
+        boxes4 = np.zeros((4, m, 4), np.float32)
+        cls4 = np.zeros((4, m), np.int32)
+        mask4 = np.zeros((4, m), bool)
+        for t, j in enumerate(ids):
+            raw = drop_ignore_boxes(self.ds.load(j))
+            img, b, _ = letterbox_np(raw["image"], raw["boxes"], s)
+            images[t] = img
+            n = min(len(raw["classes"]), m)
+            if n:
+                boxes4[t, :n] = b[:n]
+                cls4[t, :n] = raw["classes"][:n]
+                mask4[t, :n] = True
+        return {"images4": images, "boxes4": boxes4, "cls4": cls4,
+                "mask4": mask4, "mosaic4": np.asarray(use_mosaic)}
 
 
 class EvalPipeline:

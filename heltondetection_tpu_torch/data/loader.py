@@ -5,9 +5,13 @@ heltondetection_tpu/data/loader.py.
 Deterministic: every sample is seeded by (seed, epoch, index), so threads
 change only when a sample is computed, never what it is. Every wait has a
 timeout (``WAIT_S``): a wedged worker raises instead of hanging the run.
+Closing a batch iterator closes the ones it reads from explicitly, so its
+worker threads stop before ``close()`` returns (an interpreter that keeps
+a closed generator's frame alive would otherwise leave them running).
 The reference's ``device_prep`` has no counterpart: the train step divides
 by 255 itself. The native C++ loader is not ported (ROADMAP A6); its users
-get ``TrainPipeline``, as the reference's own fallback does.
+get ``TrainPipeline`` or ``DeviceAugPipeline``, as the reference's own
+fallback does.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import logging
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import closing
 from typing import Any, Dict, Iterator, List
 
 import numpy as np
@@ -153,18 +158,24 @@ class TrainLoader(_LoaderBase):
     the last short batch. A background thread stacks each batch and pins
     it; ``epoch()`` starts its copy to the card without waiting for it
     (a ``non_blocking`` upload from pinned memory), so the copy overlaps
-    the step still running there. Images stay uint8."""
+    the step still running there. Images stay uint8. ``keys`` names the
+    sample keys a batch carries (``DEVICE_AUG_KEYS`` for
+    ``DeviceAugPipeline``)."""
 
     KEYS = ("image", "gt_boxes", "gt_cls", "gt_mask")
+    # the keys of DeviceAugPipeline's samples
+    DEVICE_AUG_KEYS = ("images4", "boxes4", "cls4", "mask4", "mosaic4")
 
     def __init__(self, pipeline, batch_size: int, *, seed: int = 0,
-                 num_workers: int = 8, prefetch: int = 4, device=None):
+                 num_workers: int = 8, prefetch: int = 4, device=None,
+                 keys=None):
         self.device = resolve_device(device)
         self.pipe = pipeline
         self.batch_size = batch_size
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.keys = tuple(keys or self.KEYS)
 
     def steps_per_epoch(self) -> int:
         return len(self.pipe) // self.batch_size
@@ -177,22 +188,26 @@ class TrainLoader(_LoaderBase):
         bs = self.batch_size
         idx_batches = [[int(i) for i in order[b * bs:(b + 1) * bs]]
                        for b in range(self.steps_per_epoch())]
-        for samples in _sample_batches(
+        with closing(_sample_batches(
                 lambda i: self.pipe.sample(i, epoch), idx_batches,
-                self.num_workers, self.prefetch):
-            yield _stack(samples, self.KEYS)
+                self.num_workers, self.prefetch)) as batches:
+            for samples in batches:
+                yield _stack(samples, self.keys)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
         pin = self.device.type == "cuda"
 
         def staged():
-            for batch in self.host_batches(epoch):
-                t = {k: torch.from_numpy(v) for k, v in batch.items()}
-                yield {k: v.pin_memory() for k, v in t.items()} if pin else t
+            with closing(self.host_batches(epoch)) as batches:
+                for batch in batches:
+                    t = {k: torch.from_numpy(v) for k, v in batch.items()}
+                    yield ({k: v.pin_memory() for k, v in t.items()} if pin
+                           else t)
 
-        for batch in _prefetched(staged(), self.prefetch):
-            yield {k: v.to(self.device, non_blocking=pin)
-                   for k, v in batch.items()}
+        with closing(_prefetched(staged(), self.prefetch)) as batches:
+            for batch in batches:
+                yield {k: v.to(self.device, non_blocking=pin)
+                       for k, v in batch.items()}
 
 
 class EvalLoader(_LoaderBase):
@@ -212,7 +227,8 @@ class EvalLoader(_LoaderBase):
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n, bs = len(self.pipe), self.batch_size
         idx_batches = [list(range(b, min(b + bs, n))) for b in range(0, n, bs)]
-        for samples in _sample_batches(self.pipe.sample, idx_batches,
-                                       self.num_workers, self.prefetch,
-                                       pad_to=bs):
-            yield _stack(samples, self.KEYS)
+        with closing(_sample_batches(self.pipe.sample, idx_batches,
+                                     self.num_workers, self.prefetch,
+                                     pad_to=bs)) as batches:
+            for samples in batches:
+                yield _stack(samples, self.KEYS)

@@ -2,15 +2,17 @@
 loop, periodic eval, checkpointing and resume; counterpart of
 heltondetection_tpu/engine/runner.py.
 
-Ported: ``build_dataset``, ``build_model``, ``run_train`` (single process,
-one card) with its in-loop ``run_eval``, ``run_eval`` (single process, the
-fused route on kernel ``nms_fixpoint`` and the unfused one on ``nms_mask``),
-the eval forward and ``load_detector``. Parts not ported raise
-``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9, A13),
-the eval artifacts and ``dump_json`` (A9), ``device_aug``, DropBlock,
-remat and autoanchor (A8), the backbone registry and ``backbone_pretrain``
-(A10), the faster_rcnn family (A12), more than one device (A14), int8
-(A15).
+Ported: ``build_dataset`` (COCO, YOLO, DOTA, VOC and VisDrone readers),
+``build_model``, ``run_train`` (single process, one card) with its in-loop
+``run_eval``, DropBlock, remat, autoanchor, multi-scale and the on-device
+augmentation (``train.device_aug``), ``run_eval`` (single process, the
+fused route on kernel ``nms_fixpoint`` and the unfused one on
+``nms_mask``), the eval forward and ``load_detector``. Parts not ported
+raise ``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9,
+A13), the eval artifacts and ``dump_json`` (A9), the backbone registry and
+``backbone_pretrain`` (A10), the faster_rcnn family (A12), more than one
+device (A14), int8 (A15). The native C++ loader (A6) is not ported either:
+its configs train on the Python pipelines, and say so in the log.
 """
 
 from __future__ import annotations
@@ -38,28 +40,32 @@ _log = logging.getLogger(LOGGER)
 
 
 def build_dataset(dc, split: str = "train"):
-    """The reader of ``split`` ("train" or "val") of a ``DataConfig``. COCO
-    only: the other formats raise (ROADMAP A6)."""
-    from heltondetection_tpu_torch.data.readers import (CachedDataset,
-                                                        COCODataset)
+    """The reader of ``split`` ("train" or "val") of a ``DataConfig``:
+    ``format`` is one of coco, yolo, dota, voc and visdrone."""
+    from heltondetection_tpu_torch.data import readers as R
     ann = dc.train_ann if split == "train" else dc.val_ann
     imgs = dc.train_imgs if split == "train" else dc.val_imgs
     if dc.format == "coco":
-        ds = COCODataset(ann, imgs)
-    elif dc.format in ("yolo", "dota", "voc", "visdrone"):
-        raise NotImplementedError(
-            f"the {dc.format} reader is not ported yet (ROADMAP A6)")
+        ds = R.COCODataset(ann, imgs)
+    elif dc.format == "yolo":
+        ds = R.YOLODataset(imgs, ann, dc.class_names)
+    elif dc.format == "dota":
+        ds = R.DOTADataset(imgs, ann, dc.class_names)
+    elif dc.format == "voc":
+        ds = R.VOCDataset(ann, imgs, dc.class_names)
+    elif dc.format == "visdrone":
+        ds = R.VisDroneDataset(imgs, ann, dc.class_names)
     else:
         raise ValueError(f"unknown dataset format {dc.format}")
     if getattr(dc, "cache_images", False):
-        ds = CachedDataset(ds)
+        ds = R.CachedDataset(ds)
     return ds
 
 
 def build_model(mc, num_classes: int) -> YOLOv5:
     """The model of a ``ModelConfig``, on the CPU with uninitialised
-    weights (a checkpoint fills them). ``dropblock_p``, ``remat`` and the
-    freeze knobs shape training only and are not read here."""
+    weights (a checkpoint fills them). ``dropblock_p`` and ``remat`` act
+    in training mode only; the freeze knobs are the optimizer's."""
     if mc.family == "yolov5":
         from heltondetection_tpu_torch.models.cspdarknet import VARIANTS
         if (mc.backbone or "cspdarknet") != "cspdarknet":
@@ -70,7 +76,9 @@ def build_model(mc, num_classes: int) -> YOLOv5:
         dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
             model = YOLOv5(num_classes=num_classes, depth_multiple=d,
-                           width_multiple=w, dtype=dtype)
+                           width_multiple=w, dtype=dtype,
+                           dropblock_p=mc.dropblock_p,
+                           remat=getattr(mc, "remat", False))
         return model.to_empty(device="cpu").eval()
     if mc.family == "faster_rcnn":
         raise NotImplementedError(
@@ -276,20 +284,16 @@ def _check_train_config(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             f"training the {mc.family} family is not ported yet (ROADMAP "
             f"A12)")
-    todo = {
-        "model.dropblock_p > 0 (models/dropblock.py)": mc.dropblock_p > 0,
-        "model.remat": getattr(mc, "remat", False),
-        "train.device_aug (data/device_aug.py)": tc.device_aug,
-        "train.autoanchor (data/autoanchor.py)": tc.autoanchor,
-    }
-    for what, on in todo.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A8)")
+    if (mc.backbone or "cspdarknet") != "cspdarknet":
+        raise NotImplementedError(
+            f"yolov5 over backbone {mc.backbone!r}: the backbone registry "
+            f"is not ported yet (ROADMAP A10)")
     if tc.backbone_pretrain:
         raise NotImplementedError("train.backbone_pretrain (ResNet weights "
                                   "for the backbone registry) is not ported "
                                   "yet (ROADMAP A10)")
     if tc.spatial_shards > 1:
+        # the reference refuses spatial_shards with device_aug too
         raise NotImplementedError("train.spatial_shards and every other "
                                   "multi-device path are not ported yet "
                                   "(ROADMAP A14)")
@@ -319,7 +323,8 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     snapshot in ``cfg.best_ckpt_dir`` with ``best.json`` beside the run;
     ``resume`` continues from the newest checkpoint in ``cfg.ckpt_dir``.
     Single process, one device."""
-    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.data.augment import (DeviceAugPipeline,
+                                                        TrainPipeline)
     from heltondetection_tpu_torch.data.loader import TrainLoader
     from heltondetection_tpu_torch.models.common import init_weights
     from heltondetection_tpu_torch.train.schedule import make_optimizer
@@ -341,16 +346,27 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     model = build_model(cfg.model, nc)
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(dev, memory_format=torch.channels_last)
+    if cfg.train.autoanchor:
+        _autoanchor(cfg, train_ds, logger)
 
-    if cfg.train.native_loader:
-        logger.info("the native train loader is not ported (ROADMAP A6); "
-                    "using the Python TrainPipeline")
-    pipe = TrainPipeline(train_ds, cfg.model.img_size,
-                         mosaic_p=cfg.train.mosaic_p, hsv=cfg.train.hsv,
-                         flip_p=cfg.train.flip_p, mixup_p=cfg.train.mixup_p,
-                         max_boxes=cfg.data.max_boxes, seed=cfg.train.seed)
-    loader = TrainLoader(pipe, cfg.train.batch_size, seed=cfg.train.seed,
-                         num_workers=cfg.train.num_workers, device=dev)
+    tc = cfg.train
+    if tc.native_loader:
+        logger.info("the native train loader is not ported (ROADMAP A6, the "
+                    "next slice); using the Python %s",
+                    "DeviceAugPipeline" if tc.device_aug else "TrainPipeline")
+    if tc.device_aug:
+        pipe = DeviceAugPipeline(train_ds, cfg.model.img_size,
+                                 max_boxes=cfg.data.max_boxes, seed=tc.seed,
+                                 mosaic_p=tc.mosaic_p)
+        keys = TrainLoader.DEVICE_AUG_KEYS
+    else:
+        pipe = TrainPipeline(train_ds, cfg.model.img_size,
+                             mosaic_p=tc.mosaic_p, hsv=tc.hsv,
+                             flip_p=tc.flip_p, mixup_p=tc.mixup_p,
+                             max_boxes=cfg.data.max_boxes, seed=tc.seed)
+        keys = TrainLoader.KEYS
+    loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
+                         num_workers=tc.num_workers, device=dev, keys=keys)
     steps_per_epoch = loader.steps_per_epoch()
     if steps_per_epoch < 1:
         raise ValueError(
@@ -369,19 +385,26 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
                               label_smoothing=cfg.train.label_smoothing,
                               anchors=_cfg_anchors(cfg))
     model.packed_train = True        # the same weights, the loss's layout
-    base_step = make_train_step(loss_cfg, use_ema=cfg.train.ema,
-                                accum_steps=accum)
-    step_fn = base_step
-    if cfg.train.multi_scale:
-        ms_sizes = multiscale_sizes(cfg.model.img_size,
-                                    cfg.train.multi_scale)
+    base_step = make_train_step(loss_cfg, use_ema=tc.ema, accum_steps=accum,
+                                seed=tc.seed)
+    augmented = _device_augment(cfg, dev) if tc.device_aug else None
+    sized = None
+    if tc.multi_scale:
+        ms_sizes = multiscale_sizes(cfg.model.img_size, tc.multi_scale)
         logger.info("multi-scale training over buckets %s", ms_sizes)
 
-        def step_fn(state, batch):
+        def sized(step, batch):
             # the reference's seeded, resume-stable draw per global step
             i = int(np.random.default_rng(
-                (cfg.train.seed << 20) ^ state.step).integers(len(ms_sizes)))
-            return base_step(state, resize_batch_to(batch, ms_sizes[i]))
+                (tc.seed << 20) ^ step).integers(len(ms_sizes)))
+            return resize_batch_to(batch, ms_sizes[i])
+
+    def step_fn(state, batch):
+        if augmented is not None:      # on the card, before the model
+            batch = augmented(state.step, batch)
+        if sized is not None:
+            batch = sized(state.step, batch)
+        return base_step(state, batch)
 
     if cfg.train.pretrain_ckpt:
         n = ckpt_io.load_params_for_transfer(cfg.train.pretrain_ckpt, model)
@@ -413,6 +436,48 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
         for w in (writer, best_writer):
             w.close()
         tb.close()
+
+
+def _autoanchor(cfg: ExperimentConfig, train_ds, logger) -> None:
+    """The YOLOv5 v6.1 anchor check at train start: the best possible
+    recall of the configured anchors on the train labels, and when it is
+    below 0.98 a refit that replaces ``cfg.model.anchors`` if its fitness
+    is higher. The loss, the in-loop eval and ``load_detector`` read the
+    anchors through :func:`_cfg_anchors`. Seeded by ``train.seed``. The
+    new anchors live in this ``cfg`` only, as in the reference: the log
+    line prints them for the config file, which a later process loads."""
+    from heltondetection_tpu_torch.data.autoanchor import check_anchors
+    new, st = check_anchors(train_ds, img_size=cfg.model.img_size,
+                            anchors=_cfg_anchors(cfg), seed=cfg.train.seed)
+    if new is None:
+        logger.info("autoanchor: anchors fit the data (BPR %.4f over %d "
+                    "boxes), keeping them", st["bpr"], st["n_boxes"],
+                    extra={"autoanchor": st})
+        return
+    logger.info("autoanchor: BPR %.4f < 0.98, refit anchors (BPR %.4f, "
+                "fitness %.4f → %.4f over %d boxes): %s", st["prev_bpr"],
+                st["bpr"], st["prev_fitness"], st["fitness"], st["n_boxes"],
+                new, extra={"autoanchor": dict(st, anchors=new)})
+    cfg.model.anchors = new
+
+
+def _device_augment(cfg: ExperimentConfig, dev) -> Callable:
+    """``augmented(step, batch) → batch``: the on-device augmentation of
+    ``data.device_aug`` with draws from a generator on ``dev`` seeded by
+    (``train.seed``, step), so a resumed run draws what an unbroken one
+    would."""
+    from heltondetection_tpu_torch.data.device_aug import (
+        device_augment_batch, sample_draws, step_draws_seed)
+    tc = cfg.train
+    gen = torch.Generator(dev)
+
+    def augmented(step: int, batch: Dict) -> Dict:
+        gen.manual_seed(step_draws_seed(tc.seed, step))
+        draws = sample_draws(batch["images4"].shape[0], cfg.model.img_size,
+                             gen, flip_p=tc.flip_p, mixup_p=tc.mixup_p)
+        return device_augment_batch(batch, draws, hsv=tc.hsv)
+
+    return augmented
 
 
 def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,

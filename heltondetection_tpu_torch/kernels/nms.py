@@ -23,6 +23,7 @@ _libs = {}
 # (kernel, device index, N) checked and prepared -> for nms_fixpoint, how
 # many clusters the device holds at once
 _ready = {}
+_fixpoint_max_n = {}   # device index -> nms_fixpoint's largest N
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -110,14 +111,22 @@ def _prepare(name: str, lib: ctypes.CDLL, n: int, dev) -> None:
 
 def nms_fixpoint_max_n(device) -> int:
     """Largest N (a multiple of 32) whose per-block share of the bitmask
-    fits a block's shared memory on ``device`` (2400 on an H100)."""
-    lib = _load("nms_fixpoint")
+    fits a block's shared memory on ``device`` (2400 on an H100); found
+    once per device."""
     index = torch.device(device).index or 0
-    limit = lib.nms_fixpoint_smem_limit(index)
-    n = 32
-    while lib.nms_fixpoint_smem_bytes(n + 32) <= limit:
-        n += 32
-    return n
+    if index not in _fixpoint_max_n:
+        lib = _load("nms_fixpoint")
+        limit = lib.nms_fixpoint_smem_limit(index)
+        n = 32
+        while lib.nms_fixpoint_smem_bytes(n + 32) <= limit:
+            n += 32
+        _fixpoint_max_n[index] = n
+    return _fixpoint_max_n[index]
+
+
+def nms_mask_max_n() -> int:
+    """Largest N :func:`nms_mask` takes (16384)."""
+    return int(_load("nms_mask").nms_mask_max_n())
 
 
 def nms_fixpoint_clusters(device, n: int) -> int:

@@ -13,11 +13,13 @@ calibration hooks come with the int8 slice.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -64,18 +66,52 @@ class BatchNorm2d(nn.BatchNorm2d):
     moves the running statistics toward the batch mean and the *biased*
     batch variance; ``torch.nn.BatchNorm2d`` moves them toward the unbiased
     one. Eval mode, and training with ``momentum=None`` (the cumulative
-    average that ``models.yolov5.calibrate_bn`` uses), are torch's own."""
+    average that ``models.yolov5.calibrate_bn`` uses), are torch's own.
+
+    ``hold_stats`` (set by :func:`checkpointed` while the backward pass
+    re-runs a forward) keeps the running statistics and
+    ``num_batches_tracked`` where they are: a recomputed forward normalizes
+    with the same batch statistics but must not move them a second time."""
+
+    hold_stats = False
 
     def forward(self, x):
         if not self.training or self.momentum is None:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not self.hold_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+@contextlib.contextmanager
+def _held_stats(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.hold_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.hold_stats = False
+
+
+def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` without keeping its activations for the backward pass,
+    which runs the forward again to get them (activation checkpointing, the
+    reference's ``nn.remat``). The rerun holds the BatchNorm running
+    statistics (:class:`BatchNorm2d` ``hold_stats``), so they move once per
+    step, as without checkpointing. The modules draw no random numbers, so
+    the RNG state is not saved for the rerun."""
+    return checkpoint(module, x, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _held_stats(module)))
 
 
 class ConvBnAct(nn.Module):

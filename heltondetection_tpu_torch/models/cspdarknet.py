@@ -3,15 +3,22 @@ heltondetection_tpu/models/cspdarknet.py.
 
 Returns the pyramid features C3 (stride 8), C4 (stride 16) and C5 (stride
 32, after SPPF). Training freezes the backbone through the optimizer
-(``train.schedule``); DropBlock and remat are not ported yet (ROADMAP A8).
+(``train.schedule``). ``dropblock_p`` > 0 applies one :class:`DropBlock` to
+C3, C4 and C5 in training mode, a fresh draw each; ``remat`` checkpoints
+each stage (stem, downsamples, C3s, SPPF) in training, so the backward pass
+runs its forward again instead of keeping its activations: the same
+parameters, state dict and numbers, for about a third more backbone FLOPs.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from heltondetection_tpu_torch.models.common import (C3, SPPF, ConvBnAct,
-                                                     depth, scaled)
+                                                     checkpointed, depth,
+                                                     scaled)
+from heltondetection_tpu_torch.models.dropblock import DropBlock
 
 # (depth_multiple, width_multiple) per variant
 VARIANTS = {
@@ -26,7 +33,8 @@ VARIANTS = {
 class CSPDarknet(nn.Module):
 
     def __init__(self, depth_multiple: float = 0.33,
-                 width_multiple: float = 0.50):
+                 width_multiple: float = 0.50, dropblock_p: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         w, d = width_multiple, depth_multiple
         # stem: 6x6 stride-2 conv, pad 2 (v6.0+)
@@ -40,10 +48,21 @@ class CSPDarknet(nn.Module):
         self.down4 = ConvBnAct(scaled(512, w), scaled(1024, w), 3, 2)
         self.c3_4 = C3(scaled(1024, w), scaled(1024, w), depth(3, d))
         self.sppf = SPPF(scaled(1024, w), scaled(1024, w), 5)
+        self.dropblock = DropBlock(dropblock_p) if dropblock_p > 0 else None
+        self.remat = remat
 
     def forward(self, x):
-        x = self.c3_1(self.down1(self.stem(x)))
-        c3 = self.c3_2(self.down2(x))
-        c4 = self.c3_3(self.down3(c3))
-        c5 = self.sppf(self.c3_4(self.down4(c4)))
+        remat = self.remat and self.training and torch.is_grad_enabled()
+
+        def stage(m, x):
+            return checkpointed(m, x) if remat else m(x)
+
+        for name in ("stem", "down1", "c3_1", "down2"):
+            x = stage(getattr(self, name), x)
+        c3 = stage(self.c3_2, x)
+        c4 = stage(self.c3_3, stage(self.down3, c3))
+        x = stage(self.c3_4, stage(self.down4, c4))
+        c5 = stage(self.sppf, x)
+        if self.dropblock is not None:
+            c3, c4, c5 = (self.dropblock(c) for c in (c3, c4, c5))
         return c3, c4, c5

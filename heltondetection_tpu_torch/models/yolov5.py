@@ -45,12 +45,15 @@ class YOLOv5(nn.Module):
     are the standard ``detect{i}`` convs either way, so a train checkpoint
     is an eval checkpoint) returns the train layout of
     :func:`packed_train_head` per level, which ``train.yolo_loss.
-    yolo_loss_packed`` consumes."""
+    yolo_loss_packed`` consumes. ``dropblock_p`` and ``remat`` shape
+    training only (:class:`~heltondetection_tpu_torch.models.cspdarknet.
+    CSPDarknet`); neither adds a parameter."""
 
     def __init__(self, num_classes: int = 80, depth_multiple: float = 0.33,
                  width_multiple: float = 0.50, num_anchors: int = 3,
                  dtype: torch.dtype = torch.float32,
-                 packed_head: bool = False, packed_train: bool = False):
+                 packed_head: bool = False, packed_train: bool = False,
+                 dropblock_p: float = 0.0, remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.depth_multiple = depth_multiple
@@ -59,7 +62,8 @@ class YOLOv5(nn.Module):
         self.dtype = dtype
         self.packed_head = packed_head
         self.packed_train = packed_train
-        self.backbone = CSPDarknet(depth_multiple, width_multiple)
+        self.backbone = CSPDarknet(depth_multiple, width_multiple,
+                                   dropblock_p=dropblock_p, remat=remat)
         self.neck = PAFPNv5(depth_multiple, width_multiple)
         chans = [scaled(c, width_multiple) for c in (256, 512, 1024)]
         a = num_anchors

@@ -14,9 +14,10 @@ paths test ``inter / union > thr``, which differs only at exact ties.
   fixpoint, which is the greedy mask; the plain version of the
   ``nms_fixpoint`` CUDA kernel.
 * :func:`nms_mask_fixpoint_batched` — the entry the fused postprocess
-  calls, with the contract of ``nms_mask_fixpoint_pallas``: the
-  ``nms_fixpoint`` kernel for CUDA tensors, the plain version for CPU
-  tensors.
+  calls, with the contract of ``nms_mask_fixpoint_pallas`` (any N): the
+  ``nms_fixpoint`` kernel for CUDA tensors up to its shared-memory limit,
+  the ``nms_mask`` kernel above it (:func:`fixpoint_route`), the plain
+  version for CPU tensors.
 * :func:`nms_mask_batched` — the same for ``nms_mask_pallas``: the
   ``nms_mask`` kernel (any N) for CUDA tensors, :func:`nms_mask_seq` for
   CPU tensors.
@@ -88,17 +89,40 @@ def nms_mask_fixpoint(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     return k > 0.5
 
 
+def fixpoint_route(n: int, fixpoint_max_n: int, mask_max_n: int) -> str:
+    """The kernel that :func:`nms_mask_fixpoint_batched` launches for N
+    boxes on a card whose ``nms_fixpoint`` takes N up to
+    ``fixpoint_max_n`` (a multiple of 32) and whose ``nms_mask`` takes N up
+    to ``mask_max_n`` (a multiple of 64): ``"nms_fixpoint"`` while N,
+    padded to 32, fits the first, else ``"nms_mask"`` while N, padded to
+    64, fits the second. Both compute the same greedy mask under the same
+    predicate. A larger N raises ``ValueError``. A route by size only: a
+    kernel that fails to build or launch still raises."""
+    if n + (-n) % 32 <= fixpoint_max_n:
+        return "nms_fixpoint"
+    if n + (-n) % 64 <= mask_max_n:
+        return "nms_mask"
+    raise ValueError(f"fused NMS at N={n}: nms_fixpoint takes N up to "
+                     f"{fixpoint_max_n} and nms_mask up to {mask_max_n}")
+
+
 def nms_mask_fixpoint_batched(boxes: torch.Tensor,
                               iou_thres: float) -> torch.Tensor:
     """Keep mask (B, N) bool of score-sorted boxes (B, N, 4). On a CUDA
     tensor this launches the ``nms_fixpoint`` kernel (N padded to a
-    multiple of 32 with inert zero rows); on a CPU tensor it runs the plain
+    multiple of 32 with inert zero rows) up to its shared-memory limit
+    (2400 on an H100), and the ``nms_mask`` kernel above it
+    (:func:`fixpoint_route`); on a CPU tensor it runs the plain
     :func:`nms_mask_fixpoint`."""
     if boxes.device.type == "cpu":
         return nms_mask_fixpoint(boxes, iou_thres)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS for device {boxes.device}")
     n = boxes.shape[1]
+    route = fixpoint_route(n, nms_kernel.nms_fixpoint_max_n(boxes.device),
+                           nms_kernel.nms_mask_max_n())
+    if route == "nms_mask":
+        return nms_mask_batched(boxes, iou_thres)
     pad = (-n) % 32
     nb = F.pad(boxes.float(), (0, 0, 0, pad)).contiguous()
     return nms_kernel.nms_fixpoint(nb, iou_thres)[:, :n]

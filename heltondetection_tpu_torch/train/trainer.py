@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from heltondetection_tpu_torch.models.dropblock import reseed_dropblock
 from heltondetection_tpu_torch.train.schedule import Optimizer
 from heltondetection_tpu_torch.train.yolo_loss import (YoloLossConfig,
                                                        yolo_loss,
@@ -102,7 +103,7 @@ def _accum_grads(model, batch, loss_cfg: YoloLossConfig,
 
 
 def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
-                    accum_steps: int = 1
+                    accum_steps: int = 1, seed: int = 0
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``train_step(state, batch) → (state, metrics)``; the state is updated
     in place and returned.
@@ -112,11 +113,14 @@ def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
     (B, M) bool, all on the model's device. The metrics (``box``, ``obj``,
     ``cls``, ``total``, ``grad_norm``, the norm before clipping) stay 0-d
     tensors on the device: reading one waits for the step. The gradients
-    stay in ``.grad`` until the next step."""
+    stay in ``.grad`` until the next step. A model with DropBlock draws
+    from generators seeded by (``seed``, step), the reference's fold of the
+    step into its dropout key."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         model = state.model
         model.train()
+        reseed_dropblock(model, seed, state.step)
         model.zero_grad(set_to_none=True)      # frozen parameters too
         if accum_steps > 1:
             metrics = _accum_grads(model, batch, loss_cfg, accum_steps)

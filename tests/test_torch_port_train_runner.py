@@ -285,10 +285,10 @@ def test_entry_points_raise_without_cuda(entry, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change, item", [
-    ({"model.dropblock_p": 0.1}, "A8"), ({"model.remat": True}, "A8"),
-    ({"train.device_aug": True}, "A8"), ({"train.autoanchor": True}, "A8"),
+    ({"model.backbone": "cspdarknet_l"}, "A10"),
     ({"train.backbone_pretrain": "r50.pth"}, "A10"),
     ({"train.spatial_shards": 2}, "A14"),
+    ({"train.spatial_shards": 2, "train.device_aug": True}, "A14"),
     ({"model.family": "faster_rcnn"}, "A12"),
 ])
 def test_not_ported_train_options_raise(change, item, tmp_path):
@@ -308,6 +308,3 @@ def test_not_ported_eval_and_data_parts_raise(tmp_path):
     cfg.eval.int8 = True
     with pytest.raises(NotImplementedError, match="A15"):
         runner.run_eval(cfg, device="cpu")
-    for fmt in ("yolo", "dota", "voc", "visdrone"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            runner.build_dataset(p_base.DataConfig(format=fmt))
