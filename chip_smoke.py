@@ -117,6 +117,40 @@ fails:
          (pre_nms_topk=2401, 8 frames at 640²): nms_mask must launch and
          nms_fixpoint must not, and the dets must equal the plain NMS's
          on the same candidates;
+   g. FasterRCNN inference (from PR 7), each path with the counts reset
+      just before and read just after:
+      1. the published faster_rcnn_pafpn_decoupled_coco_832 (ResNet50,
+         PAFPNv8(256), RPN, RoIAlign over P2-P5, decoupled head, 80
+         classes, 832², bf16, B=8), random weights from seed 0 with the
+         four predictor layers scaled on the first batch so that scores
+         are distinct and unsaturated: faster_rcnn_infer must launch
+         nms_mask 6 times (5 RPN levels, the final NMS) and nothing else,
+         its dets finite and equal to those of the same features through
+         the plain nms_mask_seq on the card; the Evaluator over 32 seeded
+         frames of mixed sizes (4 batches of 8, single-label) must launch
+         nms_mask 7 times a batch with stats equal to the plain route's;
+         load_detector(a written config file, ckpt dir) must give a
+         hand-built Detector's dets (7 launches a batch); a
+         BatchingDetector (batch 8, buckets (2, 8)) under 4 clients x 8
+         frames must resolve every request to the dets of detect_batch at
+         one of the bucket sizes, 7 launches a batch; a narrow float32
+         FasterRCNN (ResNet18, 256², B=2, TF32 off) on the card must
+         equal its CPU run: pyramid and RPN logits within RCNN_F32_REL of
+         their largest, dets matched one to one (class, scores within
+         RCNN_SCORE_TOL, boxes within RCNN_BOX_TOL px);
+      2. the published faster_rcnn_fpnp2_roipool_voc_832 (FPN, coupled
+         head, RoIPool on P2 alone), one batch of 8: 6 launches, dets
+         equal to the plain NMS's;
+      3. nms_mask past its 16 register slots, N = 16448 and 20000 (B=2,
+         the scan's words in shared memory) through the fused route:
+         masks equal to nms_mask_seq's on the card; its largest N on
+         this card;
+      4. the eval step at B=8 by CUDA events (ms, img/s), its device-busy
+         time, idle share and top 8 kernels from torch.profiler, peak
+         memory, the parts (trunk, RPN head, proposals, RoIAlign with its
+         device time and bytes bound, box head, final dets) and the conv
+         and dense FLOPs counted from their shapes, on a {"rcnn": ...}
+         line;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -140,16 +174,19 @@ fails:
    computes greedy NMS or a pairwise IoU matrix (there is no torchvision),
    so library_ms is null for every kernel.
 
-The lines before the last are the serve, eval, serving, train and
-train_configs lines, the kernels line, {"kernels": [...]} (nms_fixpoint's
-entry counts the in-loop evals' launches as launches_train_eval and
-launches_train_eval_visdrone_1280, nms_mask's the fused route's above
-N=2400 as launches_fused_route_n2401), and the card's nvidia-smi line; the
-last line is {"ok": true, "device": {...}}.
+The lines before the last are the serve, eval, serving, train,
+train_configs and rcnn lines, the kernels line, {"kernels": [...]}
+(nms_fixpoint's entry counts the in-loop evals' launches as
+launches_train_eval and launches_train_eval_visdrone_1280, nms_mask's the
+fused route's above N=2400 as launches_fused_route_n2401 and FasterRCNN's
+as launches_rcnn_infer and launches_rcnn_eval, with its largest N), and
+the card's nvidia-smi line; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -164,6 +201,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 NMS_OPS_PER_PAIR = 14   # min, max x4, sub x2, mul, add x2, sub, mul, cmp
 IOU_OPS_PER_PAIR = 13   # min, max x4, sub x2, mul, add, sub, add, div
+ROOT = os.path.dirname(os.path.abspath(__file__))
 NO_LIBRARY = ("no single PyTorch call computes it (greedy NMS and the "
               "pairwise IoU matrix are torchvision ops, and there is no "
               "torchvision)")
@@ -1275,6 +1313,473 @@ def c1_phase(dev, model, thr: float) -> dict:
             "candidates": n_valid}
 
 
+RCNN_CONFIG = "configs/faster_rcnn_pafpn_decoupled_coco_832.py"
+RCNN_POOL_CONFIG = "configs/faster_rcnn_fpnp2_roipool_voc_832.py"
+# the config file phase 4g.1 writes: the published config, as load_detector
+# reads it from disk
+RCNN_SMOKE_CONFIG = """\
+from heltondetection_tpu_torch.configs.faster_rcnn_pafpn_decoupled_coco_832 \\
+    import config
+"""
+# tolerances of the narrow float32 run, card against CPU (TF32 off): the
+# network's outputs within 1e-4 of their largest magnitude (float32 convs
+# sum in another order on each); dets matched one to one with the same
+# class, scores within 1e-4 and boxes within 0.05 px
+RCNN_F32_REL = 1e-4
+RCNN_LARGE_N = (16448, 20000)   # nms_mask past its 16 register slots
+RCNN_SCORE_TOL = 1e-4
+RCNN_BOX_TOL = 0.05
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """Inside the block, batched_nms (and so every NMS of the FasterRCNN
+    path and of make_postprocess) takes its keep mask from the plain
+    nms_mask_seq on the tensors' own device instead of the nms_mask
+    kernel."""
+    from heltondetection_tpu_torch.ops import nms as ops_nms
+    kernel_route = ops_nms.nms_mask_batched
+    ops_nms.nms_mask_batched = ops_nms.nms_mask_seq
+    try:
+        yield
+    finally:
+        ops_nms.nms_mask_batched = kernel_route
+
+
+def rcnn_config(config: str):
+    """A config of the port's configs directory (or a path)."""
+    from heltondetection_tpu_torch.configs.base import load_config
+    return load_config(os.path.join(ROOT, "heltondetection_tpu_torch",
+                                    config))
+
+
+def rcnn_model(cfg, dev, seed: int, x):
+    """The config's FasterRCNN on dev, random weights from seed, with its
+    four predictor layers scaled on the images x so that RPN objectness
+    logits have std 2, RPN deltas 0.5, class logits 2 and box deltas 0.5:
+    random weights otherwise give near-equal RPN scores (every proposal
+    ties), and the scaled ones give distinct, unsaturated scores, as
+    tests/test_torch_port_rcnn_infer.py does on the CPU."""
+    import torch
+    from heltondetection_tpu_torch.engine.runner import build_model
+    from heltondetection_tpu_torch.models.common import init_weights
+    model = build_model(cfg.model, cfg.model.num_classes)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    tame_rcnn(model, x)
+    return model
+
+
+def tame_rcnn(model, x) -> None:
+    """Scale the predictors of ``model`` in place (see rcnn_model)."""
+    import torch
+    from heltondetection_tpu_torch.models.faster_rcnn import (
+        generate_proposals, pyramid_anchors)
+    cfg = model.cfg
+    with torch.no_grad():
+        _, obj, deltas = model(x)
+        model.rpn.cls.weight.mul_(2.0 / obj.std())
+        model.rpn.reg.weight.mul_(0.5 / deltas.std())
+        pyr, obj, deltas = model(x)
+        props = generate_proposals(obj, deltas, model.anchors(obj.device),
+                                   pyramid_anchors(cfg.img_size)[1],
+                                   cfg.img_size, cfg)
+        scores, hd = model.run_box_head(pyr, props[0])
+        model.box_head.cls.weight.mul_(2.0 / scores.std())
+        model.box_head.reg.weight.mul_(0.5 / hd.std())
+
+
+def match_dets(a, b, score_tol: float, box_tol: float) -> int:
+    """Fixed-shape dets (boxes, scores, classes, valid) of one batch, a and
+    b as numpy: the count of valid dets of a with no unused valid det of b
+    of the same image and class within score_tol and box_tol (greedy, in
+    a's order), plus the difference of the valid counts. 0 means the two
+    sets of dets are the same within the tolerances, whatever order
+    near-equal scores took."""
+    misses = 0
+    for i in range(a[0].shape[0]):
+        va, vb = a[3][i].astype(bool), b[3][i].astype(bool)
+        misses += abs(int(va.sum()) - int(vb.sum()))
+        free = list(np.flatnonzero(vb))
+        for j in np.flatnonzero(va):
+            hit = [k for k in free if b[2][i][k] == a[2][i][j]
+                   and abs(b[1][i][k] - a[1][i][j]) <= score_tol
+                   and np.abs(b[0][i][k] - a[0][i][j]).max() <= box_tol]
+            if hit:
+                free.remove(hit[0])
+            else:
+                misses += 1
+    return misses
+
+
+def conv_dense_flops(model, fn) -> dict:
+    """Multiply-adds x2 of one call of fn, counted by forward hooks from the
+    shapes of every conv (2·out elements·Cin/g·k²) and dense layer
+    (2·out elements·in features) of the model's backbone and neck, RPN head
+    and box head; RoIAlign, the proposals and the NMS are not counted. A
+    conv that its block applies functionally (a ResNet block's, a
+    ConvBnAct's) is counted at the BatchNorm that follows it, whose output
+    has the conv's shape."""
+    import torch
+    from heltondetection_tpu_torch.models.common import BatchNorm2d
+    parts = {"backbone_neck": 0, "rpn": 0, "box_head": 0}
+
+    def count(part, conv):
+        def hook(mod, inp, out):
+            if isinstance(conv, torch.nn.Conv2d):
+                k = conv.kernel_size[0] * conv.kernel_size[1]
+                parts[part] += 2 * out.numel() * (
+                    conv.in_channels // conv.groups) * k
+            else:
+                parts[part] += 2 * out.numel() * conv.in_features
+        return hook
+
+    hooks = []
+    for part, roots in (("backbone_neck", (model.backbone, model.neck)),
+                        ("rpn", (model.rpn,)),
+                        ("box_head", (model.box_head,))):
+        for root in roots:
+            mods = dict(root.named_modules())
+            for name, m in mods.items():
+                if isinstance(m, BatchNorm2d):
+                    *scope, leaf = name.split(".")
+                    conv = mods[".".join(scope + [leaf.replace("bn",
+                                                               "conv")])]
+                    hooks.append(m.register_forward_hook(count(part, conv)))
+                elif type(m).__name__ in ("CastConv2d", "CastLinear"):
+                    hooks.append(m.register_forward_hook(count(part, m)))
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def rcnn_phase(dev, smi: str, letterbox_np) -> dict:
+    """Phase 4g: FasterRCNN inference (see the module docstring)."""
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.engine.evaluator import Evaluator
+    from heltondetection_tpu_torch.engine.infer import Detector
+    from heltondetection_tpu_torch.engine.runner import (forward_for_eval,
+                                                         load_detector)
+    from heltondetection_tpu_torch.engine.serve import BatchingDetector
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.kernels import nms as nms_kernel
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.models.faster_rcnn import (
+        STRIDES, FasterRCNN, RCNNConfig, box_dets, detect_from_features,
+        faster_rcnn_infer, generate_proposals, pyramid_anchors)
+    from heltondetection_tpu_torch.ops.nms import (nms_mask_fixpoint_batched,
+                                                   nms_mask_seq)
+    from heltondetection_tpu_torch.ops.roi_align import multilevel_roi_align
+    from heltondetection_tpu_torch.utils.ckpt import save_eval_variables
+    from heltondetection_tpu_torch.utils.cocoeval import DetEval
+    t0 = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(7)
+    cfg = rcnn_config(RCNN_CONFIG)
+    size = cfg.model.img_size
+    batches, gts = eval_batches(rng, 32, 8, size, letterbox_np)
+    x = torch.from_numpy(batches[0]["image"]).to(dev)
+    xf = x.float() / 255.0
+
+    # 4g.1 the published faster_rcnn_pafpn_decoupled_coco_832, B=8
+    model = rcnn_model(cfg, dev, 0, xf)
+    rc = model.cfg
+    with torch.inference_mode():
+        faster_rcnn_infer(model, xf)                # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        dets = faster_rcnn_infer(model, xf)
+        torch.cuda.synchronize()
+        infer_counts = dict(launch_counts)
+        pyr, obj, deltas = model(xf)
+        got = detect_from_features(model, pyr, obj, deltas)
+        with plain_nms():
+            want = detect_from_features(model, pyr, obj, deltas)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want)) and \
+        all(torch.equal(a, b) for a, b in zip(got, dets))
+    n_valid = int(dets[3].sum())
+    finite = bool(torch.isfinite(dets[0]).all() and
+                  torch.isfinite(dets[1]).all())
+    log(f"FasterRCNN {cfg.name} (ResNet50, PAFPNv8, decoupled head, "
+        f"{size}², bf16, B=8): faster_rcnn_infer launches {infer_counts}; {n_valid} "
+        f"valid dets of {dets[3].numel()}, finite {finite}; dets == the "
+        f"plain NMS's on the same features: {equal}")
+    if infer_counts["nms_mask"] != 6 or infer_counts["nms_fixpoint"] or \
+            infer_counts["iou_matrix"]:
+        raise AssertionError("faster_rcnn_infer did not launch nms_mask "
+                             "exactly 6 times (5 RPN levels and the final)")
+    if not equal or not finite or n_valid == 0:
+        raise AssertionError("FasterRCNN dets through nms_mask differ from "
+                             "the plain NMS's, are not finite, or are none")
+    out["infer"] = {"launches": infer_counts, "valid_dets": n_valid}
+
+    # the Evaluator over 32 frames (4 batches of 8): 7 launches a batch
+    fwd = forward_for_eval(model, rc.num_classes, device=dev)
+    ev = Evaluator(fwd, rc.num_classes, conf_thres=cfg.eval.conf_thres,
+                   iou_thres=cfg.eval.iou_thres, max_det=cfg.eval.max_det,
+                   multi_label=False, device=dev)
+
+    def score(route):
+        det = DetEval(rc.num_classes)
+        for k, xywh, c in gts:
+            det.add_gt(k, xywh, c)
+        if route == "plain":
+            with plain_nms():
+                return ev.run(batches, det_eval=det)
+        return ev.run(batches, det_eval=det)
+
+    reset_launch_counts()
+    stats = score("kernel")
+    torch.cuda.synchronize()
+    eval_counts = dict(launch_counts)
+    stats_plain = score("plain")
+    keys = [k for k in stats if k not in ("images_per_sec",)]
+    same_stats = all(stats[k] == stats_plain[k] for k in keys)
+    log(f"Evaluator over 32 frames (4 batches of 8): launches {eval_counts}; "
+        f"AP {stats['AP']:.4f} AP50 {stats['AP50']:.4f}, "
+        f"{stats['images_per_sec']:.1f} img/s; stats == the plain route's: "
+        f"{same_stats}")
+    if eval_counts["nms_mask"] != 7 * len(batches) or \
+            eval_counts["nms_fixpoint"]:
+        raise AssertionError("the FasterRCNN eval did not launch nms_mask "
+                             "7 times per batch")
+    if not same_stats or stats["num_images"] != 32:
+        raise AssertionError("the FasterRCNN eval stats through nms_mask "
+                             "differ from the plain route's")
+    out["eval"] = {"launches": eval_counts, "batches": len(batches),
+                   "AP": stats["AP"], "AP50": stats["AP50"],
+                   "images_per_sec": stats["images_per_sec"]}
+
+    # load_detector from a saved checkpoint and a written config
+    sizes = [(480, 640), (720, 1280), (size, size), (375, 500), (1080, 1920),
+             (640, 427), (512, 512), (300, 400)]
+    frames = [rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in sizes]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        save_eval_variables(ckpt_dir, model.state_dict(), 0)
+        cfg_path = os.path.join(tmp, "chip_smoke_rcnn.py")
+        with open(cfg_path, "w") as f:
+            f.write(RCNN_SMOKE_CONFIG)
+        loaded = load_detector(cfg_path, ckpt=ckpt_dir, device=dev)
+    by_hand = Detector(None, rc.num_classes, size, forward_fn=fwd,
+                       conf_thres=cfg.test.conf_thres,
+                       iou_thres=cfg.test.iou_thres, device=dev)
+    loaded.detect_batch(frames)                    # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got8 = loaded.detect_batch(frames)
+    torch.cuda.synchronize()
+    load_counts = dict(launch_counts)
+    want8 = by_hand.detect_batch(frames)
+    n_loaded = sum(check_dets(f, d) for f, d in zip(frames, got8))
+    same_loaded = all(same_dets(g, w) for g, w in zip(got8, want8))
+    log(f"load_detector(config file, ckpt dir): {n_loaded} dets over 8 "
+        f"frames, launches {load_counts}; == the hand-built Detector's: "
+        f"{same_loaded}")
+    if load_counts["nms_mask"] != 7 or not same_loaded or n_loaded == 0:
+        raise AssertionError("load_detector's FasterRCNN did not launch "
+                             "nms_mask 7 times or differs from a "
+                             "hand-built Detector")
+
+    # BatchingDetector, batch 8, buckets (2, 8), 4 clients x 8 frames
+    def alone_at(frame, bucket):
+        x1, metas1 = loaded._letterbox([frame], size)
+        o = [t[0].cpu().numpy() for t in loaded._detect(
+            x1.expand(bucket, -1, -1, -1).contiguous())]
+        return loaded._to_source(*o, metas1[0], frame.shape[:2])
+
+    refs = {b: [alone_at(f, b) for f in frames] for b in (2, 8)}
+    batcher = BatchingDetector(loaded, batch_size=8, batch_buckets=(2, 8))
+    try:
+        batcher.warmup()
+        batcher.reset_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        results, latencies, wall = client_load(batcher, frames, 4, 8)
+        torch.cuda.synchronize()
+        batch_counts = dict(launch_counts)
+        bstats = batcher.stats()
+    finally:
+        closed = batcher.close(timeout=60.0)
+    for idx, d in results:
+        check_dets(frames[idx], d)
+        if not any(same_dets(d, refs[b][idx]) for b in (2, 8)):
+            raise AssertionError(f"a batched FasterRCNN request's dets "
+                                 f"equal neither bucket's (frame {idx})")
+    log(f"BatchingDetector (FasterRCNN): 4 clients x 8 frames, all 32 "
+        f"resolved to detect_batch's answers; stats {bstats}, launches "
+        f"{batch_counts}, {32 / wall:.1f} img/s, close() {closed}")
+    if bstats["requests"] != 32 or \
+            batch_counts["nms_mask"] != 7 * bstats["batches"] or not closed:
+        raise AssertionError("the FasterRCNN BatchingDetector's stats or "
+                             "launches do not add up")
+    out["serving"] = {"launches": batch_counts, "stats": bstats,
+                      "img_per_s": 32 / wall,
+                      "p50_ms": float(np.median(latencies)) * 1e3}
+
+    # a narrow float32 FasterRCNN on the card against the CPU, TF32 off
+    ncfg = RCNNConfig(num_classes=20, img_size=256, backbone="resnet18",
+                      neck="pafpn_v8", head="decoupled",
+                      rpn_pre_nms_topk=256, rpn_post_nms_topk=64, max_det=50)
+    with torch.device("meta"):
+        narrow = FasterRCNN(ncfg)
+    narrow = narrow.to_empty(device="cpu").eval()
+    init_weights(narrow, torch.Generator().manual_seed(1))
+    xn = torch.from_numpy(rng.uniform(0, 1, (2, 256, 256, 3))
+                          .astype(np.float32))
+    tame_rcnn(narrow, xn)
+    card = FasterRCNN(ncfg)
+    card.load_state_dict(narrow.state_dict())
+    card = card.to(dev).eval()
+    with torch.inference_mode():
+        c_pyr, c_obj, _ = narrow(xn)
+        g_pyr, g_obj, _ = card(xn.to(dev))
+        c_dets = [t.numpy() for t in faster_rcnn_infer(narrow, xn)]
+        g_dets = [t.cpu().numpy() for t in faster_rcnn_infer(card,
+                                                             xn.to(dev))]
+    rel = max(float((g.cpu() - c).abs().max() / c.abs().max())
+              for g, c in zip(g_pyr + [g_obj], c_pyr + [c_obj]))
+    misses = match_dets(c_dets, g_dets, RCNN_SCORE_TOL, RCNN_BOX_TOL)
+    log(f"narrow f32 FasterRCNN (ResNet18, 256², B=2), card vs CPU: "
+        f"pyramid and RPN logits within {rel:.3g} of their largest; "
+        f"{int(c_dets[3].sum())} dets, {misses} unmatched within scores "
+        f"{RCNN_SCORE_TOL} and boxes {RCNN_BOX_TOL} px")
+    if rel > RCNN_F32_REL or misses or not c_dets[3].any():
+        raise AssertionError("the narrow f32 FasterRCNN on the card differs "
+                             "from its CPU run")
+    out["card_vs_cpu"] = {"max_rel": rel, "unmatched": misses,
+                          "dets": int(c_dets[3].sum())}
+    log(f"[phase 4g.1 done at {time.perf_counter() - t0:.1f} s of 4g]")
+
+    # 4g.2 faster_rcnn_fpnp2_roipool_voc_832: one batch of 8
+    pool_model = rcnn_model(rcnn_config(RCNN_POOL_CONFIG), dev, 2, xf)
+    with torch.inference_mode():
+        faster_rcnn_infer(pool_model, xf)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        pdets = faster_rcnn_infer(pool_model, xf)
+        torch.cuda.synchronize()
+        pool_counts = dict(launch_counts)
+        p_pyr, p_obj, p_deltas = pool_model(xf)
+        with plain_nms():
+            pwant = detect_from_features(pool_model, p_pyr, p_obj, p_deltas)
+    pool_equal = all(torch.equal(a, b) for a, b in zip(pdets, pwant))
+    log(f"FasterRCNN fpnp2_roipool_voc_832 (FPN, coupled head, RoIPool on "
+        f"P2, B=8): launches {pool_counts}; {int(pdets[3].sum())} valid "
+        f"dets; == the plain NMS's: {pool_equal}")
+    if pool_counts["nms_mask"] != 6 or not pool_equal or \
+            not pdets[3].any():
+        raise AssertionError("the RoIPool FasterRCNN did not launch "
+                             "nms_mask 6 times or its dets differ")
+    out["roipool_p2"] = {"launches": pool_counts,
+                         "valid_dets": int(pdets[3].sum())}
+    del pool_model, p_pyr, p_obj, p_deltas
+
+    # 4g.3 nms_mask past its register slots: N = 16448 and 20000
+    big = {}
+    for n in RCNN_LARGE_N:
+        boxes = torch.from_numpy(class_offset_boxes(
+            np.random.default_rng(n), 2, n, 300)).to(dev)
+        thr = 0.5
+        keep = nms_mask_fixpoint_batched(boxes, thr)   # the fused route
+        want_keep = nms_mask_seq(boxes, thr)
+        pad = (-n) % 64
+        padded = torch.nn.functional.pad(boxes, (0, 0, 0, pad)).contiguous()
+        ms = cuda_ms(lambda: nms_kernel.nms_mask(padded, thr), 3, warmup=1)
+        same = torch.equal(keep, want_keep)
+        big[n] = {"equal": same, "kept": int(keep.sum()), "ms_b2": ms,
+                  "padded_n": n + pad, "bound": nms_bound_ms(2, n + pad)}
+        log(f"nms_mask at N={n} (B=2, padded to {n + pad}; the scan's words "
+            f"in shared memory): mask == nms_mask_seq's on the card: {same} "
+            f"({int(keep.sum())} kept); {ms:.3f} ms by events")
+        if not same:
+            raise AssertionError(f"nms_mask at N={n} differs from the plain "
+                                 f"mask")
+        del boxes, keep, want_keep, padded
+    torch.cuda.empty_cache()
+    out["nms_mask_large_n"] = {str(k): v for k, v in big.items()}
+    out["nms_mask_max_n"] = nms_kernel.nms_mask_max_n(dev)
+    log(f"nms_mask's largest N on this card: {out['nms_mask_max_n']}")
+
+    # 4g.4 times at B=8, 832²: the eval step, its parts, device busy share
+    _, counts = pyramid_anchors(size)
+    anchors = model.anchors(dev)
+    nl = rc.roi_levels
+    with torch.inference_mode():
+        step_ms = cuda_ms(lambda: ev._step(x), 10)
+        trunk_ms = cuda_ms(lambda: model.features(xf), 10)
+        pyr = model.features(xf)
+        rpn_ms = cuda_ms(lambda: model.rpn(pyr), 10)
+        obj, deltas = model.rpn(pyr)
+        prop_ms = cuda_ms(lambda: generate_proposals(
+            obj, deltas, anchors, counts, size, rc), 10)
+        props, _, pvalid = generate_proposals(obj, deltas, anchors, counts,
+                                              size, rc)
+        feats = [p.permute(0, 2, 3, 1) for p in pyr[:nl]]
+
+        def roi():
+            return multilevel_roi_align(feats, props, STRIDES[:nl],
+                                        out_size=7, method=rc.roi_method)
+        roi_ms = cuda_ms(roi, 10)
+        crops = roi().reshape(-1, 7, 7, 256)
+        head_ms = cuda_ms(lambda: model.box_head(crops), 10)
+        scores, hd = model.run_box_head(pyr, props)
+        final_ms = cuda_ms(lambda: box_dets(scores, hd, props, pvalid, rc),
+                           10)
+        detect_ms = cuda_ms(lambda: detect_from_features(
+            model, pyr, obj, deltas), 10)
+        step_rows = device_kernels(lambda: ev._step(x), 3)
+        roi_rows = device_kernels(roi, 3)
+        del crops
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev._step(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+    flops = conv_dense_flops(model, lambda: ev._step(x))
+    busy = sum(ms for _, ms in step_rows)
+    roi_dev = sum(ms for _, ms in roi_rows)
+    # RoIAlign's least bytes: the pooled levels read once, the crops
+    # written once
+    roi_bytes = sum(p.numel() * p.element_size() for p in pyr[:nl]) + \
+        props.shape[0] * props.shape[1] * 49 * 256 * pyr[0].element_size()
+    parts = {"trunk_ms": trunk_ms, "rpn_head_ms": rpn_ms,
+             "proposals_ms": prop_ms, "roi_align_ms": roi_ms,
+             "roi_align_device_ms": roi_dev, "box_head_ms": head_ms,
+             "final_dets_ms": final_ms,
+             "second_stage_ms": detect_ms}
+    out["step"] = {
+        "config": cfg.name, "batch": 8, "img_size": size,
+        "step_ms": step_ms, "img_per_s": 8e3 / step_ms,
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+        "top_kernels": [[k[:80], ms] for k, ms in step_rows[:8]],
+        "peak_memory_bytes": peak, "parts": parts, "flops": flops,
+        "bf16_peak_share": flops["total"] / (step_ms * 1e-3) /
+        BF16_FLOP_PER_S,
+        "roi_align_bytes": roi_bytes,
+        "roi_align_bytes_bound_ms": roi_bytes / HBM_BYTES_PER_S * 1e3,
+        "device": smi}
+    log(f"FasterRCNN eval step B=8 {size}² bf16: {step_ms:.3f} ms "
+        f"({8e3 / step_ms:.1f} img/s); device busy {busy:.3f} ms, idle "
+        f"share {1 - busy / step_ms:.3f}; peak memory {peak / 1e9:.2f} GB; "
+        f"FLOPs {flops['total'] / 1e12:.3f} T (box head "
+        f"{flops['box_head'] / 1e12:.3f} T) = "
+        f"{out['step']['bf16_peak_share']:.4f} of the bf16 peak; parts "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    log("  top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms"
+                                      for k, ms in step_rows[:8]))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1865,6 +2370,11 @@ def main() -> int:
     log(f"[phase 4f.2 done at {time.perf_counter() - t_start:.1f} s]")
     c1 = c1_phase(dev, model, thr)
     log(f"[phase 4f.3 done at {time.perf_counter() - t_start:.1f} s]")
+    # 4g. FasterRCNN inference: the published pafpn_decoupled_coco_832
+    # through faster_rcnn_infer, the Evaluator, load_detector and the
+    # BatchingDetector, the RoIPool P2 config, nms_mask past 16384, times
+    rcnn = rcnn_phase(dev, smi, letterbox_np)
+    log(f"[phase 4g done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -1901,7 +2411,7 @@ def main() -> int:
             f"({t['bound'][1]})")
 
     mask_times = {}
-    for b, n in ((32, 1024), (8, 2048)):
+    for b, n in ((32, 1024), (8, 2048), (8, 1024)):
         boxes = torch.from_numpy(class_offset_boxes(
             np.random.default_rng(n + b), b, n, n // 5)).to(dev)
         dev_ms = profiled_ms(lambda: nms_kernel.nms_mask(boxes, thr), 20,
@@ -2094,6 +2604,14 @@ def main() -> int:
         "replaces": "heltondetection_tpu/ops/nms.py:145",
         "launches": eval_counts["unfused"]["nms_mask"],
         "launches_fused_route_n2401": c1["launches"]["nms_mask"],
+        "launches_rcnn_infer": rcnn["infer"]["launches"]["nms_mask"],
+        "launches_rcnn_eval": rcnn["eval"]["launches"]["nms_mask"],
+        "launches_rcnn_eval_per_batch":
+            rcnn["eval"]["launches"]["nms_mask"] / rcnn["eval"]["batches"],
+        "largest_n_checked": max(v["padded_n"] for v in
+                                 rcnn["nms_mask_large_n"].values()),
+        "max_n": rcnn["nms_mask_max_n"],
+        "large_n": rcnn["nms_mask_large_n"],
         "max_abs_err": mask_err,
         "shape": [32, 1024, 4],
         "ms": m32["ms"], "plain_ms": m32["plain_ms"],
@@ -2104,9 +2622,14 @@ def main() -> int:
         "scan_device_ms": m32["scan_device_ms"],
         "b8_n2048": {**{k: m2k[k] for k in nms_keys if k in m2k},
                      "bound_ms": m2k["bound"][0]},
+        "b8_n1024": {**{k: mask_times[(8, 1024)][k] for k in nms_keys
+                        if k in mask_times[(8, 1024)]},
+                     "bound_ms": mask_times[(8, 1024)]["bound"][0]},
         "check": "exact keep masks (random, padding, 1024-deep chain, "
                  "identical, no overlap, N=2048, equal to nms_fixpoint, "
-                 "eval candidates)",
+                 "eval candidates, N=16448 and 20000 with the scan in "
+                 "shared memory); FasterRCNN dets equal to the plain "
+                 "NMS's",
     }, {
         "name": "iou_matrix", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/iou_matrix.cu",
@@ -2154,6 +2677,7 @@ def main() -> int:
     log(json.dumps({"train_configs": {"visdrone_1280": visdrone,
                                       "dropblock_640": dropblock,
                                       "fused_route_n2401": c1}}))
+    log(json.dumps({"rcnn": rcnn}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

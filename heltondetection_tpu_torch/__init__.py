@@ -19,7 +19,11 @@ IoU op ``ops.boxes.iou_matrix`` runs the ``iou_matrix`` CUDA kernel. YOLOv5
 training: ``run_train`` (seeded host augmentation, pinned uint8 uploads,
 the packed train head and the v6.1 loss, AdamW with warmup and cosine, EMA,
 checkpoints with resume, an in-loop ``run_eval``), and ``python -m
-heltondetection_tpu_torch.cli --mode train|eval``.
+heltondetection_tpu_torch.cli --mode train|eval``. FasterRCNN inference
+(ResNet or any registry backbone → FPN or PAFPNv8 → RPN proposals, whose
+per-level NMS and final NMS run the ``nms_mask`` kernel → RoIAlign or
+RoIPool → coupled or decoupled box head) through ``faster_rcnn_infer``,
+``run_eval``, ``load_detector`` and ``BatchingDetector``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).
@@ -34,6 +38,7 @@ _EXPORTS = {
     "BatchingDetector": "engine.serve",
     "serve_http": "engine.serve",
     "build_yolov5": "models.yolov5",
+    "faster_rcnn_infer": "models.faster_rcnn",
     "make_packed_serve_step": "engine.evaluator",
     "Detector": "engine.infer",
     "Evaluator": "engine.evaluator",

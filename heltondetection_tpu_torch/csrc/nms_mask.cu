@@ -1,6 +1,7 @@
-// Exact greedy NMS keep mask for Hopper (sm_90a), any N up to 16384: a
-// tiled bitmask build over the whole card, then one warp's register-resident
-// greedy scan per image.
+// Exact greedy NMS keep mask for Hopper (sm_90a), any N a multiple of 64: a
+// tiled bitmask build over the whole card, then one warp's greedy scan per
+// image, register-resident up to N = 16384 and with its state in shared
+// memory above.
 //
 // Replaces heltondetection_tpu/ops/nms.py:nms_mask_pallas (the Pallas body
 // _nms_kernel). Input: score-sorted boxes (B, N, 4) f32 xyxy with the class
@@ -26,10 +27,18 @@
 // 32 row words loaded from L2 (__ldcg) two units ahead. It reads only words
 // at or right of a block's diagonal word, all of which the build wrote.
 //
+// Past N = 16384 the lanes' registers cannot hold `removed` (16 words a
+// lane), so nms_mask_scan_shared_kernel keeps it in shared memory, N / 8
+// bytes (8 KB at N = 65536), and runs the same units in the same order
+// (nms::greedy_scan_shared) over the same global bitmask. What bounds N then
+// is the bitmask the wrapper allocates, N^2 / 8 bytes per image (34 MB at
+// N = 16448, 512 MB at N = 65536); the shared words would allow N up to
+// about 1.8 million.
+//
 // Why not nms_fixpoint.cu: that kernel keeps the whole bitmask in the
 // shared memory of one cluster of four blocks, which caps it at N <= 2400.
-// This one takes N up to 16384 (FasterRCNN's final NMS runs at N = 2048)
-// and spreads the O(N^2) tests over every SM.
+// This one spreads the O(N^2) tests over every SM (FasterRCNN's final NMS
+// runs at N = 2048, its RPN NMS at 1024 per level).
 //
 // Bound on this card. N*(N-1)/2 pairwise tests of 14 f32 operations per
 // image against 16*N bytes read and N written: operations bound it, about
@@ -114,6 +123,22 @@ nms_mask_scan_kernel(const uint32_t* __restrict__ mask,
                        keep + static_cast<size_t>(blockIdx.x) * n);
 }
 
+// grid B, block 32: the scan with `removed` in dynamic shared memory,
+// slots * 32 words.
+__global__ void __launch_bounds__(32)
+nms_mask_scan_shared_kernel(const uint32_t* __restrict__ mask,
+                            uint8_t* __restrict__ keep, int n, int slots) {
+  extern __shared__ uint32_t removed[];
+  const int words = n >> 5;
+  const GlobalRows rows{mask + static_cast<size_t>(blockIdx.x) * n * words,
+                        words};
+  nms::greedy_scan_shared(rows, words, slots, removed);
+  uint8_t* out = keep + static_cast<size_t>(blockIdx.x) * n;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  for (int w = lane; w < words; w += 32)
+    nms::store_keep_word(removed[w], w, out);
+}
+
 template <int WPL>
 cudaError_t launch_scan(const void* mask, void* keep, int batch, int n,
                         cudaStream_t s) {
@@ -122,16 +147,43 @@ cudaError_t launch_scan(const void* mask, void* keep, int batch, int n,
   return cudaGetLastError();
 }
 
+cudaError_t launch_scan_shared(const void* mask, void* keep, int batch, int n,
+                               int slots, cudaStream_t s) {
+  const size_t bytes = static_cast<size_t>(slots) * 32 * sizeof(uint32_t);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_mask_scan_shared_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  nms_mask_scan_shared_kernel<<<batch, 32, bytes, s>>>(
+      static_cast<const uint32_t*>(mask), static_cast<uint8_t*>(keep), n,
+      slots);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest N the scan takes (its removed words must fit the lanes' slots).
-long long nms_mask_max_n(void) { return 32LL * 32 * kMaxSlots; }
+// Largest N the scan takes on `device`: its removed words must fit a block's
+// shared memory (the build's grid takes N up to 64 * 65535, more). Negative:
+// a CUDA error code, negated.
+long long nms_mask_max_n(int device) {
+  int smem = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  const long long slots = smem / (32 * sizeof(uint32_t));
+  const long long n = slots * 32 * 32;
+  const long long grid_n = static_cast<long long>(kTile) * 65535;
+  return n < grid_n ? n : grid_n;
+}
 
 // Launches the build over the (B, N, N/64) uint64 scratch `mask`, then the
-// scan, both on `stream`; returns the CUDA error code. Neither kernel needs
-// a launch attribute: the scan holds its state in registers.
+// scan, both on `stream`; returns the CUDA error code. Only the shared-memory
+// scan above 48 KB of words (N > 393216) needs a launch attribute, set here.
 int nms_mask_launch(const void* boxes, void* mask, void* keep, int batch,
                     int n, float iou_thres, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -149,7 +201,7 @@ int nms_mask_launch(const void* boxes, void* mask, void* keep, int batch,
   if (slots <= 8) return launch_scan<8>(mask, keep, batch, n, s);
   if (slots <= kMaxSlots)
     return launch_scan<kMaxSlots>(mask, keep, batch, n, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_scan_shared(mask, keep, batch, n, slots, s));
 }
 
 const char* nms_mask_error_string(int code) {

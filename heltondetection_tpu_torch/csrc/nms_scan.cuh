@@ -24,6 +24,13 @@
 // shared-memory walk it replaces took two shared-memory round trips and
 // two __syncwarp per row.
 //
+// Past the lanes' registers (nms_mask.cu keeps at most 16 words a lane,
+// N <= 16384), greedy_scan_shared runs the same units in the same order with
+// the `removed` words in shared memory instead: word w at removed[w], so
+// lane l's slot s is removed[32s + l] and every lane touches only its own
+// words. The diagonal lane reads its word back from shared memory (its own
+// write, so no sync is needed) and ORs the resolved word in as before.
+//
 // Word width: 32 bits. A word is one lane's share of a 32-row block, one
 // __ballot_sync packs it and one __shfl_sync moves it. 64-bit words would
 // halve the blocks but keep the serial chain at N steps, double each
@@ -74,15 +81,49 @@ __device__ __forceinline__ void load_unit(const Rows& rows, int blk, int slot,
   }
 }
 
-// The unit after (blk, slot): block blk's next slot, or block blk + 1 from
-// the slot of its diagonal word. Past the last block the cursor moves on,
-// and load_unit gives zeros there.
-template <int WPL>
-__device__ __forceinline__ void advance(int& blk, int& slot, int words) {
-  if (++slot == WPL || (slot << 5) >= words) {
+// The unit after (blk, slot), with `slots` slots per lane: block blk's next
+// slot, or block blk + 1 from the slot of its diagonal word. Past the last
+// block the cursor moves on, and load_unit gives zeros there.
+__device__ __forceinline__ void advance(int& blk, int& slot, int words,
+                                        int slots) {
+  if (++slot == slots || (slot << 5) >= words) {
     ++blk;
     slot = blk >> 5;
   }
+}
+
+template <int WPL>
+__device__ __forceinline__ void advance(int& blk, int& slot, int words) {
+  advance(blk, slot, words, WPL);
+}
+
+// The diagonal of block blk, resolved serially by the lane that holds its
+// word d (the block's removed word so far): row 32 blk + k is kept iff bit
+// k is still clear, and a kept row ORs its word in. Returns the block's
+// kept rows as a mask, broadcast to every lane.
+__device__ __forceinline__ uint32_t resolve_diagonal(const uint32_t (&buf)[32],
+                                                    int blk, uint32_t d) {
+  if (static_cast<int>(threadIdx.x & 31) == (blk & 31)) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (!(d & (1u << k))) d |= buf[k];
+  }
+  return ~__shfl_sync(kFullMask, d, blk & 31);
+}
+
+// The OR of the words in buf of the rows set in `kept`: 32 independent
+// register ORs in four chains.
+__device__ __forceinline__ uint32_t or_kept_rows(const uint32_t (&buf)[32],
+                                                 uint32_t kept) {
+  uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+#pragma unroll
+  for (int k = 0; k < 32; k += 4) {
+    a0 |= buf[k] & (0u - ((kept >> k) & 1u));
+    a1 |= buf[k + 1] & (0u - ((kept >> (k + 1)) & 1u));
+    a2 |= buf[k + 2] & (0u - ((kept >> (k + 2)) & 1u));
+    a3 |= buf[k + 3] & (0u - ((kept >> (k + 3)) & 1u));
+  }
+  return (a0 | a1) | (a2 | a3);
 }
 
 // Scans one unit held in buf: on block blk's diagonal unit, the lane that
@@ -94,31 +135,28 @@ template <int WPL>
 __device__ __forceinline__ void scan_unit(const uint32_t (&buf)[32], int blk,
                                           int slot, uint32_t& kept,
                                           uint32_t (&removed)[WPL]) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
   if (slot == (blk >> 5)) {
     uint32_t d = 0u;
 #pragma unroll
     for (int t = 0; t < WPL; ++t)
       if (t == slot) d = removed[t];
-    if (lane == (blk & 31)) {
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (!(d & (1u << k))) d |= buf[k];
-    }
-    kept = ~__shfl_sync(kFullMask, d, blk & 31);
+    kept = resolve_diagonal(buf, blk, d);
   }
-  uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
-#pragma unroll
-  for (int k = 0; k < 32; k += 4) {
-    a0 |= buf[k] & (0u - ((kept >> k) & 1u));
-    a1 |= buf[k + 1] & (0u - ((kept >> (k + 1)) & 1u));
-    a2 |= buf[k + 2] & (0u - ((kept >> (k + 2)) & 1u));
-    a3 |= buf[k + 3] & (0u - ((kept >> (k + 3)) & 1u));
-  }
-  const uint32_t acc = (a0 | a1) | (a2 | a3);
+  const uint32_t acc = or_kept_rows(buf, kept);
 #pragma unroll
   for (int t = 0; t < WPL; ++t)
     if (t == slot) removed[t] |= acc;
+}
+
+// scan_unit with the removed words in shared memory (word w at removed[w],
+// slots * 32 of them).
+__device__ __forceinline__ void scan_unit_shared(const uint32_t (&buf)[32],
+                                                 int blk, int slot,
+                                                 uint32_t& kept,
+                                                 uint32_t* removed) {
+  const int own = (slot << 5) + static_cast<int>(threadIdx.x & 31);
+  if (slot == (blk >> 5)) kept = resolve_diagonal(buf, blk, removed[own]);
+  removed[own] |= or_kept_rows(buf, kept);
 }
 
 // One step of the scan: start loading the unit at the load cursor into
@@ -173,8 +211,60 @@ __device__ __forceinline__ void greedy_scan(const Rows& rows, int words,
   }
 }
 
-// keep[32w + b] = 1 - bit b of removed word w, for the lane's words: two
-// 16-byte stores per word (out must be 16-byte aligned).
+// The greedy scan of greedy_scan with the removed words in shared memory:
+// `removed` holds slots * 32 words, slots = ceil(words / 32), any number of
+// them. On return removed[w] is word w of the removed mask.
+template <class Rows>
+__device__ __forceinline__ void greedy_scan_shared(const Rows& rows,
+                                                   int words, int slots,
+                                                   uint32_t* removed) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  for (int t = 0; t < slots; ++t) removed[(t << 5) + lane] = 0u;
+  uint32_t kept = 0u;
+  int blk = 0, slot = 0, load_blk = 0, load_slot = 0;
+  uint32_t b0[32], b1[32], b2[32];
+  load_unit(rows, load_blk, load_slot, words, b0);
+  advance(load_blk, load_slot, words, slots);
+  load_unit(rows, load_blk, load_slot, words, b1);
+  advance(load_blk, load_slot, words, slots);
+  // three buffers rotate by name, two units' loads in flight
+  for (;;) {
+    load_unit(rows, load_blk, load_slot, words, b2);
+    advance(load_blk, load_slot, words, slots);
+    scan_unit_shared(b0, blk, slot, kept, removed);
+    advance(blk, slot, words, slots);
+    if (blk >= words) break;
+    load_unit(rows, load_blk, load_slot, words, b0);
+    advance(load_blk, load_slot, words, slots);
+    scan_unit_shared(b1, blk, slot, kept, removed);
+    advance(blk, slot, words, slots);
+    if (blk >= words) break;
+    load_unit(rows, load_blk, load_slot, words, b1);
+    advance(load_blk, load_slot, words, slots);
+    scan_unit_shared(b2, blk, slot, kept, removed);
+    advance(blk, slot, words, slots);
+    if (blk >= words) break;
+  }
+}
+
+// keep[32w + b] = 1 - bit b of removed word w: two 16-byte stores (out must
+// be 16-byte aligned).
+__device__ __forceinline__ void store_keep_word(uint32_t removed_word, int w,
+                                                uint8_t* __restrict__ out) {
+  const uint32_t x = ~removed_word;
+  uint32_t q[8];
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const uint32_t nib = (x >> (4 * g)) & 0xfu;
+    q[g] = (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) |
+           ((nib & 8u) << 21);
+  }
+  uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(w) << 5));
+  o[0] = make_uint4(q[0], q[1], q[2], q[3]);
+  o[1] = make_uint4(q[4], q[5], q[6], q[7]);
+}
+
+// The keep bytes of the lane's removed words.
 template <int WPL>
 __device__ __forceinline__ void write_keep(const uint32_t (&removed)[WPL],
                                            int words,
@@ -183,19 +273,7 @@ __device__ __forceinline__ void write_keep(const uint32_t (&removed)[WPL],
 #pragma unroll
   for (int t = 0; t < WPL; ++t) {
     const int w = (t << 5) + lane;
-    if (w < words) {
-      const uint32_t x = ~removed[t];
-      uint32_t q[8];
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const uint32_t nib = (x >> (4 * g)) & 0xfu;
-        q[g] = (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) |
-               ((nib & 8u) << 21);
-      }
-      uint4* o = reinterpret_cast<uint4*>(out + (static_cast<size_t>(w) << 5));
-      o[0] = make_uint4(q[0], q[1], q[2], q[3]);
-      o[1] = make_uint4(q[4], q[5], q[6], q[7]);
-    }
+    if (w < words) store_keep_word(removed[t], w, out);
   }
 }
 

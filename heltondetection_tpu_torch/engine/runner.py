@@ -3,16 +3,18 @@ loop, periodic eval, checkpointing and resume; counterpart of
 heltondetection_tpu/engine/runner.py.
 
 Ported: ``build_dataset`` (COCO, YOLO, DOTA, VOC and VisDrone readers),
-``build_model``, ``run_train`` (single process, one card) with its in-loop
+``build_model`` (YOLOv5, over a registry backbone too, and FasterRCNN),
+``run_train`` for YOLOv5 (single process, one card) with its in-loop
 ``run_eval``, DropBlock, remat, autoanchor, multi-scale and the on-device
-augmentation (``train.device_aug``), ``run_eval`` (single process, the
-fused route on kernel ``nms_fixpoint`` and the unfused one on
-``nms_mask``), the eval forward and ``load_detector``. Parts not ported
-raise ``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9,
-A13), the eval artifacts and ``dump_json`` (A9), the backbone registry and
-``backbone_pretrain`` (A10), the faster_rcnn family (A12), more than one
-device (A14), int8 (A15). The native C++ loader (A6) is not ported either:
-its configs train on the Python pipelines, and say so in the log.
+augmentation (``train.device_aug``), ``run_eval`` (single process; YOLOv5's
+fused route on kernel ``nms_fixpoint``, its unfused one and FasterRCNN's
+on ``nms_mask``), the eval forward and ``load_detector`` for both
+families. Parts not ported raise ``NotImplementedError`` naming their
+ROADMAP item: ``run_test`` (A9, A13), the eval artifacts and ``dump_json``
+(A9), training over a registry backbone and ``backbone_pretrain`` (A10),
+training FasterRCNN (A12), more than one device (A14), int8 (A15). The
+native C++ loader (A6) is not ported either: its configs train on the
+Python pipelines, and say so in the log.
 """
 
 from __future__ import annotations
@@ -22,14 +24,18 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from heltondetection_tpu_torch.configs.base import (ExperimentConfig,
                                                     load_config)
 from heltondetection_tpu_torch.device import resolve_device
+from heltondetection_tpu_torch.models.faster_rcnn import (FasterRCNN,
+                                                          RCNNConfig,
+                                                          faster_rcnn_infer)
 from heltondetection_tpu_torch.models.yolov5 import (YOLOv5, decode_full,
                                                      pack_head_variables)
 from heltondetection_tpu_torch.ops.anchors import normalize_anchors
@@ -62,27 +68,45 @@ def build_dataset(dc, split: str = "train"):
     return ds
 
 
-def build_model(mc, num_classes: int) -> YOLOv5:
+Model = Union[YOLOv5, FasterRCNN]
+
+
+def build_model(mc, num_classes: int) -> Model:
     """The model of a ``ModelConfig``, on the CPU with uninitialised
-    weights (a checkpoint fills them). ``dropblock_p`` and ``remat`` act
-    in training mode only; the freeze knobs are the optimizer's."""
+    weights (a checkpoint fills them): a YOLOv5 (``mc.backbone``, when set,
+    a registry name in place of the v6.1 CSPDarknet) or a FasterRCNN
+    (ResNet50 unless ``mc.backbone`` names another). ``dropblock_p``,
+    ``remat`` and the FasterRCNN backbone's ``norm_eval`` and
+    ``frozen_stages`` act in training mode only; the freeze knobs are the
+    optimizer's."""
+    dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
     if mc.family == "yolov5":
         from heltondetection_tpu_torch.models.cspdarknet import VARIANTS
-        if (mc.backbone or "cspdarknet") != "cspdarknet":
-            raise NotImplementedError(
-                f"yolov5 over backbone {mc.backbone!r}: the backbone "
-                f"registry is not ported yet (ROADMAP A10)")
         d, w = VARIANTS[mc.variant]
-        dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
         with torch.device("meta"):
             model = YOLOv5(num_classes=num_classes, depth_multiple=d,
                            width_multiple=w, dtype=dtype,
                            dropblock_p=mc.dropblock_p,
-                           remat=getattr(mc, "remat", False))
+                           remat=getattr(mc, "remat", False),
+                           backbone=mc.backbone or "cspdarknet")
         return model.to_empty(device="cpu").eval()
     if mc.family == "faster_rcnn":
-        raise NotImplementedError(
-            "the faster_rcnn family is not ported yet (ROADMAP A12)")
+        # proposal and sampling budgets: None keeps torchvision's defaults
+        budgets = {k: v for k in ("rpn_pre_nms_topk", "rpn_post_nms_topk",
+                                  "rpn_batch", "box_batch")
+                   if (v := getattr(mc, k, None)) is not None}
+        rcfg = RCNNConfig(num_classes=num_classes, img_size=mc.img_size,
+                          neck=mc.neck, head=mc.head,
+                          roi_method=mc.roi_method,
+                          dropblock_p=mc.dropblock_p,
+                          roi_levels=mc.roi_levels,
+                          backbone=mc.backbone or "resnet50",
+                          backbone_norm_eval=mc.backbone_norm_eval,
+                          backbone_frozen_stages=mc.backbone_frozen_stages,
+                          remat=getattr(mc, "remat", False), **budgets)
+        with torch.device("meta"):
+            model = FasterRCNN(rcfg, dtype=dtype)
+        return model.to_empty(device="cpu").eval()
     raise ValueError(f"unknown model family {mc.family}")
 
 
@@ -95,18 +119,30 @@ def _cfg_anchors(cfg: ExperimentConfig):
     return normalize_anchors(cfg.model.anchors)
 
 
-def forward_for_eval(model: YOLOv5, num_classes: int, anchors=None,
+def forward_for_eval(model: Model, num_classes: int, anchors=None,
                      device=None) -> Callable:
     """``fwd(images (B, S, S, 3) uint8) → (boxes (B, N, 4), obj (B, N),
-    cls (B, N, C))``: ``/255``, the model and ``decode_full``, the contract
-    of ``Evaluator(forward_fn=…)`` and ``Detector(forward_fn=…)``. The
-    model moves to ``device`` (CUDA unless ``device="cpu"``) in place, with
-    channels-last weights; ``anchors`` replaces the v6.1 default set."""
+    cls (B, N, C))``, the contract of ``Evaluator(forward_fn=…)`` and
+    ``Detector(forward_fn=…)``: ``/255`` and a YOLOv5 and ``decode_full``
+    (``anchors`` replaces the v6.1 default set), or ``/255`` and
+    ``faster_rcnn_infer``, whose fixed dets (B, max_det) come out as
+    boxes, scores as ``obj`` and one-hot classes (zero rows where a det
+    is not valid). The model moves to ``device`` (CUDA unless
+    ``device="cpu"``) in place, with channels-last weights."""
     dev = resolve_device(device)
     if num_classes != model.num_classes:
         raise ValueError(f"num_classes {num_classes} != the model's "
                          f"{model.num_classes}")
     model = model.to(dev, memory_format=torch.channels_last).eval()
+    if isinstance(model, FasterRCNN):
+        @torch.inference_mode()
+        def fwd(images):
+            x = torch.as_tensor(images, device=dev).float() / 255.0
+            ob, os_, oc, ov = faster_rcnn_infer(model, x)
+            cls = F.one_hot(oc.clamp(min=0).long(), num_classes).float()
+            return ob, os_, cls * ov[..., None]
+
+        return fwd
     kw = {} if anchors is None else {"anchors": normalize_anchors(anchors)}
 
     @torch.inference_mode()
@@ -164,13 +200,17 @@ def _frozen_prefixes(mc) -> tuple:
     return ("backbone",) if mc.freeze_backbone else ()
 
 
-def _net_like(model: YOLOv5, device, packed_head: bool = False) -> YOLOv5:
-    """An eval-mode YOLOv5 of ``model``'s shape on ``device`` (channels-last
+def _net_like(model: Model, device, packed_head: bool = False) -> Model:
+    """An eval-mode model of ``model``'s shape on ``device`` (channels-last
     weights), its weights left for a ``load_state_dict``."""
     with torch.device("meta"):
-        net = YOLOv5(model.num_classes, model.depth_multiple,
-                     model.width_multiple, model.num_anchors, model.dtype,
-                     packed_head=packed_head)
+        if isinstance(model, FasterRCNN):
+            net = FasterRCNN(model.cfg, model.dtype)
+        else:
+            net = YOLOv5(model.num_classes, model.depth_multiple,
+                         model.width_multiple, model.num_anchors,
+                         model.dtype, packed_head=packed_head,
+                         backbone=model.backbone_name)
     return net.to_empty(device=device).to(
         memory_format=torch.channels_last).eval()
 
@@ -188,12 +228,14 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
     """``--mode eval``: the val set → COCO AP, on ``device`` (CUDA unless
     ``device="cpu"``), single process.
 
-    ``state_dict`` (with ``model``, a YOLOv5 of the right shape) is scored
+    ``state_dict`` (with ``model``, a model of the right shape) is scored
     directly; without it the config's checkpoint is loaded
-    (``cfg.eval.ckpt``: EMA weights when saved). ``eval.fused`` (default)
-    runs the packed-head serve step, whose NMS is kernel ``nms_fixpoint``;
-    off, ``forward_for_eval`` and ``make_postprocess`` (kernel
-    ``nms_mask``).
+    (``cfg.eval.ckpt``: EMA weights when saved). For YOLOv5,
+    ``eval.fused`` (default) runs the packed-head serve step, whose NMS is
+    kernel ``nms_fixpoint``; off, ``forward_for_eval`` and
+    ``make_postprocess`` (kernel ``nms_mask``). FasterRCNN always takes
+    that second route, single-label, as in the reference; its own NMS
+    calls are ``nms_mask`` too.
 
     ``_reuse``: a dict owned by the caller (``run_train``'s in-loop eval)
     that keeps the parsed val set (``"ds"``, which the caller may also
@@ -231,7 +273,8 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         state_dict = _load_eval_variables(cfg)
     elif model is None:
         model = build_model(cfg.model, nc)
-    fused = getattr(cfg.eval, "fused", True)
+    rcnn = cfg.model.family == "faster_rcnn"
+    fused = not rcnn and getattr(cfg.eval, "fused", True)
     if "evaluator" not in reuse:
         anchors = _cfg_anchors(cfg)
         kw = dict(conf_thres=cfg.eval.conf_thres,
@@ -250,8 +293,8 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         else:
             ev = Evaluator(forward_for_eval(net, nc, anchors=anchors,
                                             device=dev), nc,
-                           multi_label=cfg.eval.multi_label, device=dev,
-                           **kw)
+                           multi_label=cfg.eval.multi_label and not rcnn,
+                           device=dev, **kw)
         reuse["net"], reuse["evaluator"] = net, ev
     reuse["net"].load_state_dict(
         pack_head_variables(state_dict, nc) if fused else state_dict)
@@ -286,8 +329,8 @@ def _check_train_config(cfg: ExperimentConfig) -> None:
             f"A12)")
     if (mc.backbone or "cspdarknet") != "cspdarknet":
         raise NotImplementedError(
-            f"yolov5 over backbone {mc.backbone!r}: the backbone registry "
-            f"is not ported yet (ROADMAP A10)")
+            f"training yolov5 over backbone {mc.backbone!r}: the registry "
+            f"backbones' train-mode knobs are not ported yet (ROADMAP A10)")
     if tc.backbone_pretrain:
         raise NotImplementedError("train.backbone_pretrain (ResNet weights "
                                   "for the backbone registry) is not ported "
@@ -604,12 +647,14 @@ def load_detector(config, ckpt: Optional[str] = None, *, device=None,
     return _make_detector(cfg, model, nc, device=dev, **detector_kwargs)
 
 
-def _make_detector(cfg, model: YOLOv5, nc: int, *, device=None, **overrides):
+def _make_detector(cfg, model: Model, nc: int, *, device=None,
+                   **overrides):
     """Detector construction from the config's test-time knobs
-    (overridable): the fused packed-head serve step (kernel
+    (overridable): for YOLOv5 the fused packed-head serve step (kernel
     ``nms_fixpoint``) unless ``cfg.eval.fused`` is off or the caller brings
-    a ``detect_fn``, else :func:`forward_for_eval` and the single-label
-    postprocess (kernel ``nms_mask``)."""
+    a ``detect_fn``; else, and always for FasterRCNN,
+    :func:`forward_for_eval` and the single-label postprocess (kernel
+    ``nms_mask``)."""
     from heltondetection_tpu_torch.engine.infer import Detector
     dev = resolve_device(device)
     kw = dict(conf_thres=cfg.test.conf_thres, iou_thres=cfg.test.iou_thres,
@@ -621,7 +666,7 @@ def _make_detector(cfg, model: YOLOv5, nc: int, *, device=None, **overrides):
     detect_fn = kw.pop("detect_fn", None)
     fwd = None
     if detect_fn is None:
-        if getattr(cfg.eval, "fused", True):
+        if cfg.model.family == "yolov5" and getattr(cfg.eval, "fused", True):
             from heltondetection_tpu_torch.engine.evaluator import \
                 make_packed_serve_step
             detect_fn = make_packed_serve_step(

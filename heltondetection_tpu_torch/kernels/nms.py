@@ -14,6 +14,7 @@ attributes) is checked and set once per device and N, not per launch.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,6 +25,7 @@ _libs = {}
 # many clusters the device holds at once
 _ready = {}
 _fixpoint_max_n = {}   # device index -> nms_fixpoint's largest N
+_mask_max_n = {}       # device index -> nms_mask's largest N
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -46,7 +48,7 @@ def _load(name: str) -> ctypes.CDLL:
         lib.nms_fixpoint_smem_limit.restype = ctypes.c_longlong
     else:
         lib.nms_mask_launch.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr]
-        lib.nms_mask_max_n.argtypes = []
+        lib.nms_mask_max_n.argtypes = [i32]
         lib.nms_mask_max_n.restype = ctypes.c_longlong
     getattr(lib, f"{name}_launch").restype = i32
     getattr(lib, f"{name}_error_string").argtypes = [i32]
@@ -103,9 +105,9 @@ def _prepare(name: str, lib: ctypes.CDLL, n: int, dev) -> None:
         if clusters == 0:
             raise RuntimeError(f"nms_fixpoint at N={n}: the device cannot "
                                f"hold one cluster of its blocks at once")
-    elif n > lib.nms_mask_max_n():
-        raise ValueError(f"nms_mask takes N up to {lib.nms_mask_max_n()}, "
-                         f"got N={n}")
+    elif n > nms_mask_max_n(dev):
+        raise ValueError(f"nms_mask takes N up to {nms_mask_max_n(dev)} on "
+                         f"{dev}, got N={n}")
     _ready[key] = clusters
 
 
@@ -124,9 +126,22 @@ def nms_fixpoint_max_n(device) -> int:
     return _fixpoint_max_n[index]
 
 
-def nms_mask_max_n() -> int:
-    """Largest N :func:`nms_mask` takes (16384)."""
-    return int(_load("nms_mask").nms_mask_max_n())
+def nms_mask_max_n(device) -> int:
+    """Largest N (a multiple of 64) that :func:`nms_mask` takes on
+    ``device``: one image's (N, N) scratch bitmask, N²/8 bytes, must fit the
+    device's memory (about 800,000 on an 80 GB H100), and its scan's N/8
+    bytes of words a block's shared memory (about 1.8 million); found once
+    per device. Whether a batch's bitmask can be allocated now is the
+    allocator's to say."""
+    index = torch.device(device).index or 0
+    if index not in _mask_max_n:
+        limit = int(_load("nms_mask").nms_mask_max_n(index))
+        if limit < 0:
+            _raise_on("nms_mask", _load("nms_mask"), -limit)
+        mem = torch.cuda.get_device_properties(index).total_memory
+        n = int(math.isqrt(mem * 8)) // 64 * 64
+        _mask_max_n[index] = min(limit // 64 * 64, n)
+    return _mask_max_n[index]
 
 
 def nms_fixpoint_clusters(device, n: int) -> int:
@@ -181,9 +196,11 @@ def nms_fixpoint_build(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
 
 def nms_mask(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Keep mask (B, N) bool of score-sorted, class-offset boxes (B, N, 4)
-    f32 on a CUDA device, N a positive multiple of 64 up to 16384, through
-    a (B, N, N/64) uint64 scratch bitmask (N²/8 bytes per image).
-    Anything else raises; there is no other variant."""
+    f32 on a CUDA device, N a positive multiple of 64 up to
+    :func:`nms_mask_max_n`, through a (B, N, N/64) uint64 scratch bitmask
+    (N²/8 bytes per image). Up to N = 16384 the scan keeps its words in
+    registers, above in shared memory; the mask is the same. Anything else
+    raises; there is no other variant."""
     _check_boxes("nms_mask", boxes, 64)
     b, n, _ = boxes.shape
     lib = _load("nms_mask")

@@ -114,6 +114,24 @@ def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
                                           _held_stats(module)))
 
 
+class CastConv2d(nn.Conv2d):
+    """A conv whose float32 weight and bias are cast to the dtype of its
+    input where it runs (flax's ``nn.Conv(dtype=…)``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class CastLinear(nn.Linear):
+    """A dense layer whose float32 weight and bias are cast to the dtype of
+    its input where it runs (flax's ``nn.Dense(dtype=…)``)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class ConvBnAct(nn.Module):
     """Conv → BN → SiLU, the universal YOLOv5 block ("Conv"). The conv's
     float32 weight is cast to the input's dtype where it is used."""

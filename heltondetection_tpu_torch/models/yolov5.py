@@ -47,13 +47,17 @@ class YOLOv5(nn.Module):
     :func:`packed_train_head` per level, which ``train.yolo_loss.
     yolo_loss_packed`` consumes. ``dropblock_p`` and ``remat`` shape
     training only (:class:`~heltondetection_tpu_torch.models.cspdarknet.
-    CSPDarknet`); neither adds a parameter."""
+    CSPDarknet`); neither adds a parameter. ``backbone`` other than
+    ``"cspdarknet"`` (the v6.1 backbone of the depth and width multiples)
+    is a name of the backbone registry (``models.backbones``), whose last
+    three features feed the neck."""
 
     def __init__(self, num_classes: int = 80, depth_multiple: float = 0.33,
                  width_multiple: float = 0.50, num_anchors: int = 3,
                  dtype: torch.dtype = torch.float32,
                  packed_head: bool = False, packed_train: bool = False,
-                 dropblock_p: float = 0.0, remat: bool = False):
+                 dropblock_p: float = 0.0, remat: bool = False,
+                 backbone: str = "cspdarknet"):
         super().__init__()
         self.num_classes = num_classes
         self.depth_multiple = depth_multiple
@@ -62,9 +66,17 @@ class YOLOv5(nn.Module):
         self.dtype = dtype
         self.packed_head = packed_head
         self.packed_train = packed_train
-        self.backbone = CSPDarknet(depth_multiple, width_multiple,
-                                   dropblock_p=dropblock_p, remat=remat)
-        self.neck = PAFPNv5(depth_multiple, width_multiple)
+        self.backbone_name = backbone
+        if backbone == "cspdarknet":
+            self.backbone = CSPDarknet(depth_multiple, width_multiple,
+                                       dropblock_p=dropblock_p, remat=remat)
+        else:
+            from heltondetection_tpu_torch.models.backbones import \
+                build_backbone
+            self.backbone = build_backbone(backbone, dropblock_p=dropblock_p,
+                                           remat=remat)
+        self.neck = PAFPNv5(depth_multiple, width_multiple,
+                            in_channels=self.backbone.channels[-3:])
         chans = [scaled(c, width_multiple) for c in (256, 512, 1024)]
         a = num_anchors
         if packed_head:
@@ -80,7 +92,7 @@ class YOLOv5(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        feats = self.neck(self.backbone(x))
+        feats = self.neck(self.backbone(x)[-3:])
         a = self.num_anchors
         outs = []
         for i, f in enumerate(feats):
@@ -173,7 +185,7 @@ def packed_copy(model: YOLOv5) -> YOLOv5:
     with torch.device("meta"):    # no default init: the weights are assigned
         packed = YOLOv5(model.num_classes, model.depth_multiple,
                         model.width_multiple, model.num_anchors, model.dtype,
-                        packed_head=True)
+                        packed_head=True, backbone=model.backbone_name)
     packed.load_state_dict(pack_head_variables(
         model.state_dict(), model.num_classes, model.num_anchors),
         assign=True)

@@ -2,8 +2,9 @@
 
 ``xyxy`` is (x1, y1, x2, y2) in absolute pixels, ``cxcywh`` (cx, cy, w, h),
 ``xywh`` COCO's (x_min, y_min, w, h). Every function takes any leading batch
-dims with the box dim last. The delta codecs and ``box_ioa_matrix`` come
-with the FasterRCNN slice.
+dims with the box dim last. :func:`encode_deltas` and
+:func:`decode_deltas` are FasterRCNN's box coder (torchvision's
+``BoxCoder``), :func:`box_ioa_matrix` COCO's crowd overlap.
 
 :func:`iou_matrix` is the public op of the ``iou_matrix`` CUDA kernel
 (``csrc/iou_matrix.cu``, counterpart of ``iou_matrix_pallas``); its plain
@@ -108,6 +109,62 @@ def box_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     area_a = box_area(boxes1)[..., :, None]
     area_b = box_area(boxes2)[..., None, :]
     return inter / (area_a + area_b - inter + EPS)
+
+
+def box_ioa_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection over the area of ``boxes1``: (..., N, 4) x
+    (..., M, 4) → (..., N, M)."""
+    a = boxes1[..., :, None, :]
+    b = boxes2[..., None, :, :]
+    iw = (torch.minimum(a[..., 2], b[..., 2]) -
+          torch.maximum(a[..., 0], b[..., 0])).clamp(min=0.0)
+    ih = (torch.minimum(a[..., 3], b[..., 3]) -
+          torch.maximum(a[..., 1], b[..., 1])).clamp(min=0.0)
+    return iw * ih / (box_area(boxes1)[..., :, None] + EPS)
+
+
+def encode_deltas(anchors: torch.Tensor, gt: torch.Tensor,
+                  weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """xyxy anchors and xyxy targets → (dx, dy, dw, dh), torchvision's
+    ``BoxCoder`` (weights (1, 1, 1, 1) for the RPN, (10, 10, 5, 5) for the
+    box head)."""
+    wa = anchors[..., 2] - anchors[..., 0]
+    ha = anchors[..., 3] - anchors[..., 1]
+    xa = anchors[..., 0] + 0.5 * wa
+    ya = anchors[..., 1] + 0.5 * ha
+    wg = gt[..., 2] - gt[..., 0]
+    hg = gt[..., 3] - gt[..., 1]
+    xg = gt[..., 0] + 0.5 * wg
+    yg = gt[..., 1] + 0.5 * hg
+    wx, wy, ww, wh = weights
+    return torch.stack([
+        wx * (xg - xa) / (wa + EPS),
+        wy * (yg - ya) / (ha + EPS),
+        ww * torch.log(wg.clamp(min=EPS) / (wa + EPS)),
+        wh * torch.log(hg.clamp(min=EPS) / (ha + EPS)),
+    ], dim=-1)
+
+
+def decode_deltas(anchors: torch.Tensor, deltas: torch.Tensor,
+                  weights=(1.0, 1.0, 1.0, 1.0),
+                  clamp: float = 4.135166556742356) -> torch.Tensor:
+    """The inverse of :func:`encode_deltas`; dw and dh are clamped from
+    above at ``clamp`` = log(1000/16), as torchvision does."""
+    wa = anchors[..., 2] - anchors[..., 0]
+    ha = anchors[..., 3] - anchors[..., 1]
+    xa = anchors[..., 0] + 0.5 * wa
+    ya = anchors[..., 1] + 0.5 * ha
+    wx, wy, ww, wh = weights
+    dx = deltas[..., 0] / wx
+    dy = deltas[..., 1] / wy
+    dw = (deltas[..., 2] / ww).clamp(max=clamp)
+    dh = (deltas[..., 3] / wh).clamp(max=clamp)
+    cx = dx * wa + xa
+    cy = dy * ha + ya
+    w = torch.exp(dw) * wa
+    h = torch.exp(dh) * ha
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h,
+                        cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
 def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

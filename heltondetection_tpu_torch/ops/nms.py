@@ -93,17 +93,19 @@ def fixpoint_route(n: int, fixpoint_max_n: int, mask_max_n: int) -> str:
     """The kernel that :func:`nms_mask_fixpoint_batched` launches for N
     boxes on a card whose ``nms_fixpoint`` takes N up to
     ``fixpoint_max_n`` (a multiple of 32) and whose ``nms_mask`` takes N up
-    to ``mask_max_n`` (a multiple of 64): ``"nms_fixpoint"`` while N,
-    padded to 32, fits the first, else ``"nms_mask"`` while N, padded to
-    64, fits the second. Both compute the same greedy mask under the same
-    predicate. A larger N raises ``ValueError``. A route by size only: a
-    kernel that fails to build or launch still raises."""
+    to ``mask_max_n`` (a multiple of 64; the largest N whose N²/8-byte
+    bitmask fits the card's memory): ``"nms_fixpoint"`` while N, padded to
+    32, fits the first, else ``"nms_mask"`` while N, padded to 64, fits the
+    second. Both compute the same greedy mask under the same predicate. A
+    larger N raises ``ValueError``. A route by size only: a kernel that
+    fails to build, launch or allocate still raises."""
     if n + (-n) % 32 <= fixpoint_max_n:
         return "nms_fixpoint"
     if n + (-n) % 64 <= mask_max_n:
         return "nms_mask"
     raise ValueError(f"fused NMS at N={n}: nms_fixpoint takes N up to "
-                     f"{fixpoint_max_n} and nms_mask up to {mask_max_n}")
+                     f"{fixpoint_max_n} and nms_mask up to {mask_max_n}, "
+                     f"the largest N whose (N, N) bitmask the card can hold")
 
 
 def nms_mask_fixpoint_batched(boxes: torch.Tensor,
@@ -120,7 +122,7 @@ def nms_mask_fixpoint_batched(boxes: torch.Tensor,
         raise ValueError(f"no NMS for device {boxes.device}")
     n = boxes.shape[1]
     route = fixpoint_route(n, nms_kernel.nms_fixpoint_max_n(boxes.device),
-                           nms_kernel.nms_mask_max_n())
+                           nms_kernel.nms_mask_max_n(boxes.device))
     if route == "nms_mask":
         return nms_mask_batched(boxes, iou_thres)
     pad = (-n) % 32

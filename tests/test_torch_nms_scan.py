@@ -18,6 +18,10 @@ them unwritten, so a model that read one would disagree. Layouts:
   of the diagonal unwritten, read as little-endian 32-bit words;
 * ``words64``: 64-bit words and 64-row blocks, the other word width.
 
+``nms_mask``'s scan past the lanes' registers (N > 16384) keeps the removed
+words in shared memory and walks units of (block, slot) in the kernel's
+order: :func:`_shared_scan` models it lane by lane on the same layouts.
+
 Masks are bit masks: every comparison is exact. The inputs carry no IoU on
 the threshold, so the two predicates in use (``inter > thr·union`` in the
 port, ``inter/union > thr`` in ``nms_mask_jnp``) agree.
@@ -186,6 +190,50 @@ def _block_scan(load, n, bits):
         assert removed[r] == d                # the diagonal lane's OR
     return np.array([not (removed[i // bits] >> (i % bits)) & 1
                      for i in range(n)])
+
+
+def _shared_scan(load, n, bits):
+    """``nms::greedy_scan_shared``: 32 lanes, lane l holding words 32s + l
+    (slot s), the removed words in one shared array (word w at index w);
+    units (block, slot) in ``nms::advance``'s order, each lane's row words
+    of the block loaded only at or right of the block's diagonal word; the
+    diagonal lane resolves the diagonal from its own shared word, and every
+    lane ORs the kept rows' words into its own word. Returns keep (n,)."""
+    words = n // bits
+    slots = -(-words // 32)
+    dtype = np.uint32 if bits == 32 else np.uint64
+    removed = np.zeros(slots * 32, dtype)
+    kept, blk, slot = np.zeros(bits, bool), 0, 0
+    while blk < words:
+        buf = np.zeros((32, bits), dtype)          # lane x row
+        for lane in range(32):
+            w = 32 * slot + lane
+            if blk <= w < words:
+                buf[lane] = load(blk, w)
+        if slot == blk // 32:
+            d = int(removed[blk])
+            for k, row in enumerate(buf[blk % 32]):
+                if not (d >> k) & 1:
+                    d |= int(row)
+            kept = np.array([not (d >> k) & 1 for k in range(bits)])
+        acc = np.bitwise_or.reduce(buf[:, kept], axis=1) if kept.any() \
+            else np.zeros(32, dtype)
+        removed[32 * slot:32 * slot + 32] |= acc
+        slot += 1
+        if slot == slots or 32 * slot >= words:
+            blk += 1
+            slot = blk // 32
+    return np.array([not (int(removed[i // bits]) >> (i % bits)) & 1
+                     for i in range(n)])
+
+
+@pytest.mark.parametrize("layout", ["fixpoint32", "mask32", "words64"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_shared_scan_matches_greedy(case, layout):
+    sup, want, _ = _references(case)
+    bits, load = _layout(sup, layout)
+    np.testing.assert_array_equal(_shared_scan(load, sup.shape[0], bits),
+                                  want)
 
 
 @pytest.mark.parametrize("layout", ["fixpoint32", "mask32", "words64"])

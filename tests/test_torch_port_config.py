@@ -203,11 +203,22 @@ def test_load_detector_matches_jax_make_detector(tiny_variant, tmp_path):
 
 
 def test_not_ported_parts_raise_by_name(tmp_path):
+    """Inference builds for both families and every registry backbone now;
+    training FasterRCNN (A12) or YOLOv5 over a registry backbone (A10)
+    still raises, by name; an unknown family or backbone is a ValueError."""
+    from heltondetection_tpu_torch.models.faster_rcnn import FasterRCNN
     mc = p_base.ModelConfig
-    with pytest.raises(NotImplementedError, match="A12"):
-        runner.build_model(mc(family="faster_rcnn"), 20)
-    with pytest.raises(NotImplementedError, match="A10"):
-        runner.build_model(mc(backbone="cspdarknet_l"), 20)
+    rcnn = runner.build_model(mc(family="faster_rcnn"), 20)
+    assert isinstance(rcnn, FasterRCNN) and rcnn.cfg.backbone == "resnet50"
+    swap = runner.build_model(mc(backbone="cspdarknet_l"), 20)
+    assert swap.backbone_name == "cspdarknet_l"
+    for change, item in (({"family": "faster_rcnn"}, "A12"),
+                         ({"backbone": "cspdarknet_l"}, "A10")):
+        cfg = p_base.ExperimentConfig(model=mc(**change))
+        with pytest.raises(NotImplementedError, match=item):
+            runner._check_train_config(cfg)
+    with pytest.raises(ValueError, match="unknown backbone"):
+        runner.build_model(mc(backbone="resnet7"), 20)
     with pytest.raises(ValueError, match="unknown model family"):
         runner.build_model(mc(family="detr"), 20)
     m = runner.build_model(mc(variant="n", dtype="bfloat16"), 7)

@@ -181,14 +181,20 @@ def _warmup_on_cuda_detector():
                                    "make_packed_serve_step", "Detector",
                                    "Evaluator", "forward_for_eval",
                                    "load_detector", "BatchingDetector.warmup",
-                                   "cli"])
+                                   "cli", "forward_for_eval_rcnn",
+                                   "load_detector_rcnn", "cli_eval_rcnn",
+                                   "cli_serve_rcnn"])
 def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
-    """(h) with no CUDA, every entry point raises unless device="cpu"."""
+    """(h) with no CUDA, every entry point raises unless device="cpu", for
+    a YOLOv5 and a FasterRCNN config alike."""
+    from heltondetection_tpu_torch.configs.base import ModelConfig
+    from heltondetection_tpu_torch.engine.runner import build_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert port_device.resolve_device("cpu") == torch.device("cpu")
     model = weights[2]
-    config = str(ROOT / "heltondetection_tpu_torch" / "configs" /
-                 "yolov5_s_coco_640.py")
+    configs = ROOT / "heltondetection_tpu_torch" / "configs"
+    config = str(configs / "yolov5_s_coco_640.py")
+    rcnn_config = str(configs / "faster_rcnn_pafpn_decoupled_coco_832.py")
     call = {
         "resolve_device": lambda: port_device.resolve_device(),
         "build_yolov5": lambda: build_yolov5("n", NC),
@@ -199,6 +205,13 @@ def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
         "load_detector": lambda: load_detector(config),
         "BatchingDetector.warmup": _warmup_on_cuda_detector,
         "cli": lambda: cli.main(["--mode", "serve", "--config", config]),
+        "forward_for_eval_rcnn": lambda: forward_for_eval(build_model(
+            ModelConfig(family="faster_rcnn", backbone="resnet18"), NC), NC),
+        "load_detector_rcnn": lambda: load_detector(rcnn_config),
+        "cli_eval_rcnn": lambda: cli.main(["--mode", "eval", "--config",
+                                           rcnn_config]),
+        "cli_serve_rcnn": lambda: cli.main(["--mode", "serve", "--config",
+                                            rcnn_config]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

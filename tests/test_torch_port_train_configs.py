@@ -12,6 +12,7 @@ the same labels and seed (both are host numpy in the same order).
 import dataclasses
 import glob
 import logging
+import math
 import os
 
 import numpy as np
@@ -158,19 +159,28 @@ def test_every_yolov5_config_trains_but_the_backbone_swap(name):
 
 
 def test_fused_nms_route_by_size():
-    """The fused route's kernel by N on an H100's limits: nms_fixpoint up to
-    2400, nms_mask above it up to 16384 (N padded to 32 and to 64), and a
-    ValueError naming both limits beyond."""
+    """The fused route's kernel by N on an 80 GB H100's limits: nms_fixpoint
+    up to 2400, nms_mask above it (N padded to 32 and to 64) up to the
+    largest N whose (N, N) bitmask, N²/8 bytes, fits the card's memory
+    (800,000 at 80 GB; past N = 16384 its scan keeps its words in shared
+    memory), and a ValueError naming both limits beyond. The reference's
+    XLA fixpoint takes any N; its (N, N) f32 matrix is 32 times larger per
+    entry."""
+    mask_max = math.isqrt(80 * 10**9 * 8) // 64 * 64
+    assert mask_max == 800000
     for n, want in ((1, "nms_fixpoint"), (1024, "nms_fixpoint"),
                     (2369, "nms_fixpoint"), (2400, "nms_fixpoint"),
                     (2401, "nms_mask"), (4096, "nms_mask"),
-                    (16383, "nms_mask"), (16384, "nms_mask")):
-        assert fixpoint_route(n, 2400, 16384) == want, n
-    for n in (16385, 20000):
-        with pytest.raises(ValueError, match="2400.*16384"):
-            fixpoint_route(n, 2400, 16384)
+                    (16383, "nms_mask"), (16384, "nms_mask"),
+                    (16385, "nms_mask"), (16448, "nms_mask"),
+                    (20000, "nms_mask"), (65536, "nms_mask"),
+                    (799999, "nms_mask"), (800000, "nms_mask")):
+        assert fixpoint_route(n, 2400, mask_max) == want, n
+    for n in (800001, 10**6):
+        with pytest.raises(ValueError, match="2400.*800000.*bitmask"):
+            fixpoint_route(n, 2400, mask_max)
     # a card with less shared memory moves the boundary with it
-    assert fixpoint_route(1056, 1024, 16384) == "nms_mask"
+    assert fixpoint_route(1056, 1024, mask_max) == "nms_mask"
 
 
 def test_autoanchor_matches_reference(tmp_path):
