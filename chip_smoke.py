@@ -44,8 +44,8 @@ fails:
       with and without a letterbox inverse. Random weights score AP near 0
       on the noise frames; the point there is the path, not the score;
    c. iou: the public op ops.boxes.iou_matrix at (1024, 25200); iou_matrix
-      must launch (the kernel has no caller in the reference package but
-      its tests, so its op is its path);
+      must launch (its production callers, FasterRCNN's two assigners,
+      are driven in phase 4h);
    d. serving: the seed-0 weights are written with save_eval_variables
       beside a config file in a temporary directory. load_detector(config
       file, ckpt=dir) must give the dets of a Detector built by hand from
@@ -151,6 +151,45 @@ fails:
          device time and bytes bound, box head, final dets) and the conv
          and dense FLOPs counted from their shapes, on a {"rcnn": ...}
          line;
+   h. FasterRCNN training, each path with the counts reset
+      just before and read just after:
+      1. the published faster_rcnn_pafpn_decoupled_coco_832 (B=16, 832²,
+         bf16 over float32 weights, AdamW 2e-4, mosaic 0.5, EMA) through
+         train_from_datasets on in-memory frames (32 train, 16 val, as 4e
+         makes them), 2 epochs x 2 steps in a temporary work dir: every
+         epoch's metrics finite, nms_mask launched 5 times a step (the
+         proposals, one a level) and 7 times an eval batch of the in-loop
+         eval, iou_matrix 2 x 16 times a step (both assigners, one an
+         image), nms_fixpoint never; then epochs=3 must resume at step 4
+         and train steps 5-6 with the same counts a step, the checkpoint
+         holding the sampling generator's state; load_detector(config,
+         ckpt=work dir) must give the dets of a Detector built from the
+         EMA weights in train_state.pt;
+      2. the loss falls: 30 steps of make_rcnn_train_step on one fixed
+         batch of 16 (augmentation off, the same draws each step, the
+         backbone trained whole: norm_eval off, no frozen stage, AdamW
+         1e-3): the mean total of the last 5 at most LOSS_FALL_RATIO (0.5)
+         times that of the first 5;
+      3. the card equals the CPU: a narrow float32 FasterRCNN (ResNet18,
+         256², B=2, 20 classes, TF32 off) on the same draws: the RPN
+         assignment and the box head's on the same proposals exactly
+         equal (box targets within 1e-5 of their largest); one train
+         step each, the card's on the CPU step's proposals (an NMS over
+         boxes that differ by rounding may keep another one, and the
+         second stage would sample another roi; the card's own
+         proposals are compared and reported apart): metrics within
+         1e-4 relative, each gradient within 1e-4 of the global norm and
+         3e-3 of its own, BatchNorm statistics within 5e-5;
+      4. iou_matrix at the RPN assigner's shape (172887 anchors of 832² x
+         128 gts) within 1 ulp of box_iou_matrix, its time beside its
+         bytes bound;
+      5. the train step at B=16 by CUDA events (ms, img/s), its device-
+         busy time, idle share and top 8 kernels from torch.profiler, peak
+         memory, its parts by CUDA events (trunk forward, proposals, the
+         two assigners, the sparse RPN loss, RoIAlign forward, the box head
+         and its loss, the backward, optimizer + EMA; RoIAlign's backward
+         alone) and its FLOPs counted from the conv and dense shapes with
+         their share of the bf16 peak, on a {"rcnn_train": ...} line;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -175,13 +214,15 @@ fails:
    so library_ms is null for every kernel.
 
 The lines before the last are the serve, eval, serving, train,
-train_configs and rcnn lines, the kernels line, {"kernels": [...]}
-(nms_fixpoint's entry counts the in-loop evals' launches as
+train_configs, rcnn and rcnn_train lines, the kernels line, {"kernels":
+[...]} (nms_fixpoint's entry counts the in-loop evals' launches as
 launches_train_eval and launches_train_eval_visdrone_1280, nms_mask's the
 fused route's above N=2400 as launches_fused_route_n2401 and FasterRCNN's
-as launches_rcnn_infer and launches_rcnn_eval, with its largest N), and
-the card's nvidia-smi line; the last line is {"ok": true, "device":
-{...}}.
+as launches_rcnn_infer, launches_rcnn_eval and launches_rcnn_train, with
+its largest N; iou_matrix's FasterRCNN training launches as
+launches_rcnn_train and its times at the assigner's shape as
+rcnn_assigner), and the card's nvidia-smi line; the last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1780,6 +1821,534 @@ def rcnn_phase(dev, smi: str, letterbox_np) -> dict:
     return out
 
 
+# tolerances of phase 4h.3, the narrow float32 train step on the card
+# against the CPU (TF32 off), as phase 4e's: metrics within 1e-4 relative,
+# each gradient within 1e-4 of the global gradient norm and 3e-3 of its own
+# norm, BatchNorm running statistics within 5e-5 (relative, at least 1
+# absolute); the RPN assignment and the box head's on the same proposals
+# exactly (iou_matrix is bit-equal to box_iou_matrix), box targets within
+# 1e-5 of their largest
+RCNN_TRAIN_BATCH = 16
+RCNN_TRAIN_LR = 1e-3       # the fixed-batch loss-fall run's AdamW rate
+
+
+def xyxy_batch(batch):
+    """A train batch with its cxcywh gt boxes as xyxy (``gt_boxes_xyxy``),
+    the form FasterRCNN's step takes."""
+    import torch
+    out = {k: v for k, v in batch.items() if k != "gt_boxes"}
+    b = batch["gt_boxes"]
+    half = b[..., 2:] * 0.5
+    out["gt_boxes_xyxy"] = torch.cat([b[..., :2] - half, b[..., :2] + half],
+                                     -1)
+    return out
+
+
+def rcnn_train_flops(model, fn) -> dict:
+    """Multiply-adds x2 of one train step of ``model``, counted from the
+    conv and dense shapes of one forward (``fn``, the loss) by
+    ``conv_dense_flops``: the backbone and neck, the dense RPN head (run
+    without gradient: forward only), the box head; the backbone's frozen
+    stages (forward only) apart; the sparse RPN head's matmuls from their
+    shapes. A part with gradients costs 3x its forward (the input's and the
+    weights' gradients)."""
+    import torch
+    from heltondetection_tpu_torch.models.common import BatchNorm2d
+    frozen = {"flops": 0}
+    stages = model.cfg.backbone_frozen_stages
+    prefixes = ("stem_",) + tuple(f"layer{i}_" for i in
+                                  range(1, stages + 1)) if stages else ()
+    mods = dict(model.backbone.named_modules())
+    hooks = []
+    for name, m in mods.items():
+        if isinstance(m, BatchNorm2d) and name.startswith(prefixes):
+            *scope, leaf = name.split(".")
+            conv = mods[".".join(scope + [leaf.replace("bn", "conv")])]
+
+            def hook(mod, inp, out, conv=conv):
+                k = conv.kernel_size[0] * conv.kernel_size[1]
+                frozen["flops"] += 2 * out.numel() * conv.in_channels * k
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        parts = conv_dense_flops(model, fn)
+    finally:
+        for h in hooks:
+            h.remove()
+    cfg = model.cfg
+    sparse = 2 * RCNN_TRAIN_BATCH * cfg.rpn_batch * (9 * 256 * 256 +
+                                                    256 * 15)
+    trunk = parts["backbone_neck"]
+    step = (3 * (trunk - frozen["flops"]) + frozen["flops"] + parts["rpn"] +
+            3 * parts["box_head"] + 3 * sparse)
+    return {"trunk": trunk, "trunk_frozen_stages": frozen["flops"],
+            "rpn_dense": parts["rpn"], "rpn_sparse": sparse,
+            "box_head": parts["box_head"],
+            "forward": parts["total"] + sparse, "step": step}
+
+
+def rcnn_train_phase(dev, smi: str) -> dict:
+    """Phase 4h: FasterRCNN training (see the module docstring)."""
+    import copy
+    import dataclasses
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.engine import runner as runner_mod
+    from heltondetection_tpu_torch.engine.runner import (_make_detector,
+                                                         build_model,
+                                                         load_detector,
+                                                         train_from_datasets)
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.kernels import iou as iou_kernel
+    from heltondetection_tpu_torch.models import faster_rcnn as rcnn_mod
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.models.faster_rcnn import (
+        STRIDES, FasterRCNN, RCNNConfig, _rpn_loss_body, assign_box_targets,
+        assign_rpn_targets, box_head_loss, draw_sampling, faster_rcnn_loss,
+        generate_proposals, pyramid_anchors, rpn_logits_at)
+    from heltondetection_tpu_torch.ops.boxes import box_iou_matrix
+    from heltondetection_tpu_torch.ops.roi_align import multilevel_roi_align
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_rcnn_train_step,
+                                                         update_ema)
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    b = RCNN_TRAIN_BATCH
+    base = rcnn_config(RCNN_CONFIG)
+    size = base.model.img_size
+    train_ds, val_ds = SynthFrames(2 * b, 20), SynthFrames(b, 21)
+    torch.cuda.empty_cache()
+
+    # 4h.1 the published config through train_from_datasets: 2 epochs x 2
+    # steps with the in-loop eval, then a resume for a third epoch
+    records = LogRecords()
+    with tempfile.TemporaryDirectory() as work:
+        cfg = dataclasses.replace(
+            base, name="chip_rcnn_train", work_dir=work,
+            train=dataclasses.replace(base.train, epochs=2, warmup_epochs=1.0,
+                                      eval_interval=1, ckpt_interval=1,
+                                      num_workers=8))
+        out["config"] = {"name": base.name, "batch_size": cfg.train.batch_size,
+                         "img_size": size, "dtype": cfg.model.dtype,
+                         "lr": cfg.train.lr, "mosaic_p": cfg.train.mosaic_p,
+                         "ema": cfg.train.ema,
+                         "grad_accum": cfg.train.grad_accum}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            train_from_datasets(cfg, train_ds, val_ds, device=dev)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t1
+            counts2 = dict(launch_counts)
+            peak_run = torch.cuda.max_memory_allocated(dev)
+            epochs2 = records.field("epoch_stats")
+            evals2 = records.field("eval_stats")
+            warned = any("FROM SCRATCH" in r.getMessage()
+                         for r in records.records)
+            files = sorted(os.listdir(os.path.join(cfg.ckpt_dir, "4")))
+            records.records.clear()
+            cfg.train.epochs = 3
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            train_from_datasets(cfg, train_ds, val_ds, device=dev)
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t1
+            counts3 = dict(launch_counts)
+            epochs3 = records.field("epoch_stats")
+            evals3 = records.field("eval_stats")
+            resumed = records.field("resumed_step")
+            saved = torch.load(os.path.join(cfg.ckpt_dir, "6",
+                                            "train_state.pt"),
+                               map_location="cpu", weights_only=True)
+            # the network load_detector builds, caught on its way into
+            # forward_for_eval: random weights trained 6 steps score no
+            # class above RCNNConfig.score_thresh, so dets alone could not
+            # tell two weight sets apart
+            served_nets = []
+            ffe = runner_mod.forward_for_eval
+
+            def catch(model, *a, **k):
+                served_nets.append(model)
+                return ffe(model, *a, **k)
+            runner_mod.forward_for_eval = catch
+            try:
+                served = load_detector(cfg, ckpt=cfg.ckpt_dir, device=dev)
+            finally:
+                runner_mod.forward_for_eval = ffe
+            by_hand_model = build_model(cfg.model, 80)
+            by_hand_model.load_state_dict({**saved["model"], **saved["ema"]})
+            by_hand = _make_detector(cfg, by_hand_model, 80, device=dev)
+        finally:
+            records.close()
+    n_steps2 = sum(e["steps"] for e in epochs2)
+    per_eval = -(-len(val_ds) // cfg.eval.batch_size)
+    want2 = {"nms_mask": 5 * n_steps2 + 7 * per_eval * len(evals2),
+             "iou_matrix": 2 * b * n_steps2}
+    log(f"train_from_datasets {base.name} (ResNet50, PAFPNv8, decoupled "
+        f"head, {size}², bf16, B={b}), 2 epochs x 2 steps: {wall2:.1f} s; "
+        f"epochs {[(e['epoch'], e['steps'], round(e['total'], 4))
+                  for e in epochs2]}; "
+        f"in-loop evals AP {[round(e['AP'], 6) for e in evals2]}; launches "
+        f"{counts2} (want {want2}); peak memory {peak_run / 1e9:.2f} GB; "
+        f"step 4 files {files}; from-scratch warning {warned}")
+    log(f"resumed (epochs=3): {wall3:.1f} s; resumed at {resumed}; epochs "
+        f"{[(e['epoch'], e['steps'], e['step']) for e in epochs3]}; "
+        f"launches {counts3}")
+    keys = ("rpn_obj", "rpn_reg", "cls", "box", "total", "grad_norm")
+    finite = all(math.isfinite(e[k]) for e in epochs2 + epochs3 for k in keys)
+    if not finite or [e["steps"] for e in epochs2] != [2, 2]:
+        raise AssertionError(f"FasterRCNN train epochs: {epochs2}")
+    if len(evals2) != 2 or counts2["nms_mask"] != want2["nms_mask"] or \
+            counts2["iou_matrix"] != want2["iou_matrix"] or \
+            counts2["nms_fixpoint"]:
+        raise AssertionError(f"FasterRCNN training launched {counts2}, not "
+                             f"{want2}")
+    want3 = {"nms_mask": 5 * 2 + 7 * per_eval, "iou_matrix": 2 * b * 2}
+    if resumed != [4] or [(e["epoch"], e["steps"], e["step"])
+                          for e in epochs3] != [(2, 2, 6)] \
+            or len(evals3) != 1 or files != ["eval_variables.pt",
+                                             "train_state.pt"] \
+            or saved.get("rng") is None or any(counts3[k] != v
+                                               for k, v in want3.items()):
+        raise AssertionError(f"resume: {resumed}, {epochs3}, {files}, "
+                             f"{counts3}")
+    frames = [f[0] for f in val_ds.frames[:4]]
+    got, want = served.detect_batch(frames), by_hand.detect_batch(frames)
+    n_dets = sum(len(d[1]) for d in got)
+    ema_sd = {**saved["model"], **saved["ema"]}
+    net_sd = served_nets[0].state_dict() if len(served_nets) == 1 else {}
+    same_weights = net_sd.keys() == ema_sd.keys() and all(
+        torch.equal(v.cpu(), ema_sd[k]) for k, v in net_sd.items())
+    moved = not all(torch.equal(saved["model"][k], v)
+                    for k, v in saved["ema"].items())
+    if not all(same_dets(g, w) for g, w in zip(got, want)) or \
+            not same_weights or not moved:
+        raise AssertionError("load_detector does not serve the trained "
+                             "FasterRCNN's EMA weights")
+    log(f"load_detector(work dir) serves train_state.pt's EMA weights at "
+        f"step 6 (every tensor equal; they differ from the raw weights), "
+        f"its dets == a Detector's of them ({n_dets} dets on {len(frames)} "
+        f"frames)")
+    secs = [e["seconds"] for e in epochs2 + epochs3]
+    waits = [e["loader_wait_s"] for e in epochs2 + epochs3]
+    out["run_train"] = {
+        "launches": counts2, "launches_want": want2,
+        "launches_resumed": counts3, "epochs_s": secs,
+        "loader_wait_s": waits, "loader_wait_share": sum(waits) / sum(secs),
+        "wall_s_2_epochs": wall2, "wall_s_resumed_epoch": wall3,
+        "peak_memory_bytes": peak_run,
+        "eval_img_per_s": [e["images_per_sec"] for e in evals2 + evals3],
+        "metrics": [{k: e[k] for k in keys} for e in epochs2 + epochs3]}
+    del served, by_hand, by_hand_model, saved
+    torch.cuda.empty_cache()
+    log(f"[phase 4h.1 done at {time.perf_counter() - t0:.1f} s of 4h]")
+
+    # 4h.2 the loss falls: 30 steps on one fixed batch of 16, augmentation
+    # off, fixed draws, the backbone trained whole
+    pipe = TrainPipeline(train_ds, size, mosaic_p=0.0, hsv=False, flip_p=0.0,
+                         max_boxes=cfg.data.max_boxes)
+    host = [pipe.sample(i) for i in range(b)]
+    batch = xyxy_batch({k: torch.from_numpy(np.stack([s[k] for s in host]))
+                        .to(dev) for k in host[0]})
+    n_anchors = pyramid_anchors(size)[0].shape[0]
+    fall_mc = dataclasses.replace(cfg.model, backbone_norm_eval=False,
+                                  backbone_frozen_stages=0)
+    model = build_model(fall_mc, 80)
+    n_rois = model.cfg.rpn_post_nms_topk + batch["gt_boxes_xyxy"].shape[1]
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(
+        model, RCNN_TRAIN_LR, total_steps=30, warmup_steps=3))
+    draws = draw_sampling(torch.Generator(dev).manual_seed(5), b, n_anchors,
+                          n_rois)
+    step = make_rcnn_train_step()
+    totals = []
+    for _ in range(30):
+        state, m = step(state, batch, [draws])
+        totals.append(m["total"])
+    totals = [float(t) for t in totals]
+    ratio = float(np.mean(totals[-5:]) / np.mean(totals[:5]))
+    log(f"fixed batch of {b}, 30 steps (norm_eval off, no frozen stage, "
+        f"AdamW {RCNN_TRAIN_LR}): total {totals[0]:.3f} → {totals[-1]:.3f}; "
+        f"last-5 / first-5 mean {ratio:.4f} (must be ≤ {LOSS_FALL_RATIO})")
+    if not all(math.isfinite(t) for t in totals) or ratio > LOSS_FALL_RATIO:
+        raise AssertionError(f"the FasterRCNN loss did not fall: {totals}")
+    out["loss_fall"] = {"totals": totals, "ratio": ratio,
+                        "required_ratio": LOSS_FALL_RATIO,
+                        "lr": RCNN_TRAIN_LR}
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"[phase 4h.2 done at {time.perf_counter() - t0:.1f} s of 4h]")
+
+    # 4h.3 the card equals the CPU: a narrow float32 FasterRCNN, one step
+    ncfg = RCNNConfig(num_classes=20, img_size=256, backbone="resnet18",
+                      neck="pafpn_v8", head="decoupled",
+                      rpn_pre_nms_topk=256, rpn_post_nms_topk=64)
+    with torch.device("meta"):
+        narrow = FasterRCNN(ncfg)
+    narrow = narrow.to_empty(device="cpu")
+    init_weights(narrow, torch.Generator().manual_seed(1))
+    small_pipe = TrainPipeline(train_ds, 256, mosaic_p=0.0, hsv=False,
+                               flip_p=0.0, max_boxes=16)
+    host = [small_pipe.sample(i) for i in range(2)]
+    small = xyxy_batch({k: torch.from_numpy(np.stack([s[k] for s in host]))
+                        for k in host[0]})
+    small["gt_cls"] = small["gt_cls"] % 20
+    xs = small["image"].float() / 255.0
+    tame_rcnn(narrow.eval(), xs)
+    n_small = pyramid_anchors(256)[0].shape[0]
+    cdraws = draw_sampling(torch.Generator().manual_seed(6), 2, n_small,
+                           64 + small["gt_boxes_xyxy"].shape[1])
+    gdraws = type(cdraws)(*(tuple(u.to(dev) for u in part)
+                            for part in cdraws))
+    # the assignments, on the same inputs: exactly equal
+    with torch.no_grad():
+        _, c_obj, c_deltas = narrow(xs)
+        c_props, _, c_pvalid = generate_proposals(
+            c_obj, c_deltas, narrow.anchors("cpu"),
+            pyramid_anchors(256)[1], 256, ncfg)
+    args = (small["gt_boxes_xyxy"], small["gt_mask"])
+    c_rpn = assign_rpn_targets(narrow.anchors("cpu"), *args, ncfg,
+                               cdraws.rpn)
+    g_rpn = assign_rpn_targets(narrow.anchors("cpu").to(dev),
+                               *(a.to(dev) for a in args), ncfg, gdraws.rpn)
+    c_box = assign_box_targets(c_props, c_pvalid, small["gt_boxes_xyxy"],
+                               small["gt_cls"], small["gt_mask"], ncfg,
+                               cdraws.box)
+    g_box = assign_box_targets(c_props.to(dev), c_pvalid.to(dev),
+                               small["gt_boxes_xyxy"].to(dev),
+                               small["gt_cls"].to(dev),
+                               small["gt_mask"].to(dev), ncfg, gdraws.box)
+    same_assign = all(torch.equal(c, g.cpu()) for c, g in zip(c_rpn, g_rpn)) \
+        and all(torch.equal(c_box[i], g_box[i].cpu()) for i in (0, 1, 3, 4))
+    reg_err = float((c_box[2] - g_box[2].cpu()).abs().max() /
+                    c_box[2].abs().max())
+    # one train step on each, the card's on the CPU step's proposals: an
+    # NMS over boxes that differ by rounding may keep another proposal on
+    # each, and then the second stage samples another roi; the proposals
+    # themselves are compared apart
+    proposals = {}
+    own_proposals = rcnn_mod.generate_proposals
+
+    def shared_proposals(*a, **k):
+        out = own_proposals(*a, **k)
+        proposals.setdefault(str(out[0].device), out)
+        cpu = proposals.get("cpu")
+        return tuple(t.to(out[0].device) for t in cpu) if cpu else out
+
+    runs = {}
+    rcnn_mod.generate_proposals = shared_proposals
+    try:
+        for where, d in (("cpu", cdraws), (str(dev), gdraws)):
+            m_ = copy.deepcopy(narrow).to(where)
+            st = create_train_state(m_, make_optimizer(
+                m_, 1e-3, total_steps=10, warmup_steps=1))
+            st, met = make_rcnn_train_step()(
+                st, {k: v.to(where) for k, v in small.items()}, [d])
+            runs[where] = (m_, {k: float(v) for k, v in met.items()})
+    finally:
+        rcnn_mod.generate_proposals = own_proposals
+    pc, pg = proposals["cpu"], [t.cpu() for t in proposals[str(dev)]]
+    prop_valid_equal = torch.equal(pc[2], pg[2])
+    prop_px = float((pc[0] - pg[0]).abs().amax(-1)[pc[2] & pg[2]].max())
+    prop_far = int(((pc[0] - pg[0]).abs().amax(-1) > 0.05).sum())
+    (mc, metc), (mg, metg) = runs["cpu"], runs[str(dev)]
+    metric_errs = {k: abs(metg[k] - metc[k]) / max(abs(metc[k]), 1e-12)
+                   for k in metc}
+    metric_err = max(metric_errs.values())
+    gnorm = metc["grad_norm"]
+    pairs = [(pc, pg) for pc, pg in zip(mc.parameters(), mg.parameters())
+             if pc.grad is not None]
+    grad_own = max(float((pg.grad.cpu() - pc.grad).abs().max() /
+                         pc.grad.norm().clamp(min=1e-30)) for pc, pg in pairs)
+    grad_global = max(float((pg.grad.cpu() - pc.grad).abs().max())
+                      for pc, pg in pairs) / gnorm
+    sc, sg = mc.state_dict(), mg.state_dict()
+    stat_err = max(float(((sg[k].cpu() - sc[k]).abs() /
+                          sc[k].abs().clamp(min=1.0)).max())
+                   for k in sc if "running" in k)
+    log(f"narrow f32 FasterRCNN train step (ResNet18, 256², B=2), card vs "
+        f"CPU: assignments equal {same_assign} (box targets within "
+        f"{reg_err:.3g} of their largest); the card's own proposals: valid "
+        f"masks equal {prop_valid_equal}, {prop_far} of "
+        f"{pc[0].shape[0] * pc[0].shape[1]} more than 0.05 px apart (the "
+        f"rest within {prop_px:.3g} px); metrics rel "
+        f"{ {k: float(f'{v:.3g}') for k, v in metric_errs.items()} }; grads "
+        f"max |Δ| {grad_own:.3g} of the tensor's norm, {grad_global:.3g} of "
+        f"the global norm; BN running stats {stat_err:.3g}")
+    if not (same_assign and reg_err <= 1e-5 and metric_err <= 1e-4
+            and grad_global <= 1e-4 and grad_own <= 3e-3
+            and stat_err <= 5e-5):
+        raise AssertionError("the narrow FasterRCNN train step on the card "
+                             "differs from the CPU's")
+    out["card_vs_cpu"] = {"assignments_equal": same_assign,
+                          "box_target_rel_err": reg_err,
+                          "own_proposals_valid_equal": prop_valid_equal,
+                          "own_proposals_far": prop_far,
+                          "own_proposals_px": prop_px,
+                          "metric_rel_err": metric_errs,
+                          "grad_err_of_tensor_norm": grad_own,
+                          "grad_err_of_global_norm": grad_global,
+                          "bn_stat_err": stat_err}
+    del runs, mc, mg
+    log(f"[phase 4h.3 done at {time.perf_counter() - t0:.1f} s of 4h]")
+
+    # 4h.4 iou_matrix at the RPN assigner's shape: every anchor of 832²
+    # against a padded gt set of 128
+    anchors = torch.from_numpy(pyramid_anchors(size)[0]).to(dev)
+    gts = torch.from_numpy(sorted_boxes(np.random.default_rng(8), 1, 128,
+                                        size=float(size))[0]).to(dev)
+    got = iou_kernel.iou_matrix(anchors, gts)
+    want = box_iou_matrix(anchors, gts)
+    torch.cuda.synchronize()
+    ulp = max_ulp(got, want)
+    n, m_ = anchors.shape[0], gts.shape[0]
+    assigner = {
+        "shape": [n, m_], "max_ulp": ulp,
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(lambda: iou_kernel.iou_matrix(anchors, gts), 20),
+        "device_ms": profiled_ms(lambda: iou_kernel.iou_matrix(anchors, gts),
+                                 10, ("iou_matrix_kernel",))[
+                                     "iou_matrix_kernel"],
+        "plain_ms": cuda_ms(lambda: box_iou_matrix(anchors, gts), 10),
+        "bound": iou_bound_ms(n, m_)}
+    log(f"iou_matrix at the RPN assigner's shape ({n}, {m_}): {ulp} ulp "
+        f"from box_iou_matrix; events {assigner['ms']:.4f} ms, device "
+        f"{assigner['device_ms']} ms, plain {assigner['plain_ms']:.4f} ms, "
+        f"bound {assigner['bound'][0]:.5f} ms ({assigner['bound'][1]})")
+    if tuple(got.shape) != (n, m_) or ulp > 1:
+        raise AssertionError(f"iou_matrix is {ulp} ulp from the plain "
+                             f"version at ({n}, {m_})")
+    out["iou_assigner"] = assigner
+    del got, want
+
+    # 4h.5 the step's numbers at B=16 with the published knobs (the
+    # backbone's stem and layer1 frozen, its BatchNorm on running stats)
+    model = build_model(cfg.model, 80)
+    init_weights(model, torch.Generator().manual_seed(1))
+    model = model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, make_optimizer(
+        model, cfg.train.lr, total_steps=100, warmup_steps=1),
+        rng=torch.Generator(dev).manual_seed(7))
+    rc = model.cfg
+    step = make_rcnn_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(lambda: step(state, batch), 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = device_kernels(lambda: step(state, batch), 3)
+    busy = sum(ms for _, ms in rows)
+    _, counts = pyramid_anchors(size)
+    anchors = model.anchors(dev)
+    nl = rc.roi_levels
+    gt, gc, gm = (batch[k] for k in ("gt_boxes_xyxy", "gt_cls", "gt_mask"))
+    names = ("trunk_forward", "proposals", "assigners", "rpn_sparse_loss",
+             "roi_align_forward", "box_head_and_loss", "backward",
+             "optimizer_ema")
+    parts = dict.fromkeys(names, 0.0)
+    n_parts = 3
+    for _ in range(n_parts):
+        d = draw_sampling(state.rng, b, n_anchors, n_rois)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        model.train()
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        pyr = model.features(batch["image"].float() / 255.0)
+        ev[1].record()
+        with torch.no_grad():
+            obj, deltas = model.rpn(pyr)
+            props, _, pvalid = generate_proposals(obj, deltas, anchors,
+                                                  counts, size, rc)
+        ev[2].record()
+        idx, is_fg, valid, matched = assign_rpn_targets(anchors, gt, gm, rc,
+                                                        d.rpn)
+        rois, labels, reg_t, bfg, bvalid = assign_box_targets(
+            props, pvalid, gt, gc, gm, rc, d.box)
+        ev[3].record()
+        obj_k, reg_k = rpn_logits_at(model.rpn, pyr, idx, model.dtype)
+        l_obj, l_reg = _rpn_loss_body(obj_k, reg_k, anchors, idx, is_fg,
+                                      valid, matched, gt)
+        ev[4].record()
+        crops = multilevel_roi_align(
+            [p.permute(0, 2, 3, 1) for p in pyr[:nl]], rois, STRIDES[:nl],
+            out_size=7, method=rc.roi_method)
+        ev[5].record()
+        sc_, hd = model.box_head(crops.reshape(-1, *crops.shape[2:]))
+        l_cls, l_box = box_head_loss(
+            sc_.reshape(b, -1, sc_.shape[-1]),
+            hd.reshape(b, -1, *hd.shape[1:]), labels, reg_t, bfg, bvalid)
+        total = l_obj.mean() + l_reg.mean() + l_cls.mean() + l_box.mean()
+        ev[6].record()
+        total.backward()
+        ev[7].record()
+        state.optimizer.step()
+        update_ema(state.ema, model, state.step)
+        state.step += 1
+        ev[8].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(names):
+            parts[k] += ev[i].elapsed_time(ev[i + 1]) / n_parts
+        del pyr, obj, deltas, props, crops, sc_, hd, total
+    # RoIAlign's backward alone: its scatter into the pyramid's rows
+    with torch.no_grad():
+        pyr = model.features(batch["image"].float() / 255.0)
+        obj, deltas = model.rpn(pyr)
+        props = generate_proposals(obj, deltas, anchors, counts, size, rc)
+        rois = assign_box_targets(props[0], props[2], gt, gc, gm, rc,
+                                  draw_sampling(state.rng, b, n_anchors,
+                                                n_rois).box)[0]
+    feats = [p.detach().permute(0, 2, 3, 1).requires_grad_()
+             for p in pyr[:nl]]
+
+    def roi_fwd():
+        return multilevel_roi_align(feats, rois, STRIDES[:nl], out_size=7,
+                                    method=rc.roi_method)
+
+    g = torch.randn_like(roi_fwd())
+    roi_bwd_ms = 0.0
+    for _ in range(5):
+        crops = roi_fwd()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        crops.backward(g)
+        e1.record()
+        torch.cuda.synchronize()
+        roi_bwd_ms += e0.elapsed_time(e1) / 5
+    roi_rows = device_kernels(lambda: roi_fwd().backward(g), 3)
+    parts["roi_align_backward_alone"] = roi_bwd_ms
+    parts["roi_align_fwd_bwd_device"] = sum(ms for _, ms in roi_rows)
+    del pyr, obj, deltas, props, feats, g, crops
+    flops = rcnn_train_flops(model, lambda: faster_rcnn_loss(
+        model, batch["image"].float() / 255.0, gt, gc, gm,
+        draws=state.rng))
+    mfu = flops["step"] / (step_ms * 1e-3) / BF16_FLOP_PER_S
+    out["step"] = {
+        "config": base.name, "batch": b, "img_size": size,
+        "ms": step_ms, "img_per_s": b * 1e3 / step_ms,
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / step_ms,
+        "top_kernels": [[k[:80], ms] for k, ms in rows[:8]],
+        "max_memory_allocated_bytes": peak, "parts_ms": parts,
+        "roi_align_top_kernels": [[k[:80], ms] for k, ms in roi_rows[:4]],
+        "flops": flops, "bf16_peak_flop_per_s": BF16_FLOP_PER_S,
+        "bf16_peak_share": mfu, "device": smi}
+    log(f"FasterRCNN train step B={b} {size}² bf16 on {smi}: {step_ms:.3f} "
+        f"ms, {b * 1e3 / step_ms:.1f} img/s | device busy {busy:.3f} ms, "
+        f"idle share {1.0 - busy / step_ms:.3f} | peak memory "
+        f"{peak / 1e9:.2f} GB | {flops['step'] / 1e12:.3f} TFLOP a step, "
+        f"{mfu:.4f} of the bf16 peak | parts "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    log("  top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms"
+                                      for k, ms in rows[:8]))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2375,6 +2944,11 @@ def main() -> int:
     # BatchingDetector, the RoIPool P2 config, nms_mask past 16384, times
     rcnn = rcnn_phase(dev, smi, letterbox_np)
     log(f"[phase 4g done at {time.perf_counter() - t_start:.1f} s]")
+    # 4h. FasterRCNN training: the published pafpn_decoupled_coco_832
+    # through train_from_datasets with a resume and load_detector, the loss
+    # falling, card against CPU, iou_matrix at the assigner's shape, times
+    rcnn_train = rcnn_train_phase(dev, smi)
+    log(f"[phase 4h done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -2608,6 +3182,7 @@ def main() -> int:
         "launches_rcnn_eval": rcnn["eval"]["launches"]["nms_mask"],
         "launches_rcnn_eval_per_batch":
             rcnn["eval"]["launches"]["nms_mask"] / rcnn["eval"]["batches"],
+        "launches_rcnn_train": rcnn_train["run_train"]["launches"]["nms_mask"],
         "largest_n_checked": max(v["padded_n"] for v in
                                  rcnn["nms_mask_large_n"].values()),
         "max_n": rcnn["nms_mask_max_n"],
@@ -2635,7 +3210,11 @@ def main() -> int:
         "source": "heltondetection_tpu_torch/csrc/iou_matrix.cu",
         "replaces": "heltondetection_tpu/ops/boxes.py:143",
         "launches": iou_counts["iou_matrix"],
-        "max_abs_err": iou_err, "max_ulp": iou_ulp,
+        "launches_rcnn_train":
+            rcnn_train["run_train"]["launches"]["iou_matrix"],
+        "max_abs_err": max(iou_err,
+                           rcnn_train["iou_assigner"]["max_abs_err"]),
+        "max_ulp": max(iou_ulp, rcnn_train["iou_assigner"]["max_ulp"]),
         "shape": [1024, 25200],
         "ms": iou_t["ms"], "plain_ms": iou_t["plain_ms"],
         "bound_ms": iou_t["bound"][0], "bound_by": iou_t["bound"][1],
@@ -2646,9 +3225,15 @@ def main() -> int:
             "plain_ms": iou_tall["plain_ms"],
             "bound_ms": iou_tall["bound"][0],
             "bound_by": iou_tall["bound"][1]},
+        "rcnn_assigner": {
+            k: v for k, v in rcnn_train["iou_assigner"].items()
+            if k != "bound"} | {
+            "bound_ms": rcnn_train["iou_assigner"]["bound"][0],
+            "bound_by": rcnn_train["iou_assigner"]["bound"][1]},
         "check": "within 1 ulp of box_iou_matrix, float4 store (1024x8192, "
-                 "ragged 1000x25200 with zero-area rows, N=1, 65536x128) "
-                 "and float store (M % 4 = 1, 2, 3 and M=1)",
+                 "ragged 1000x25200 with zero-area rows, N=1, 65536x128, "
+                 "the RPN assigner's 172887x128) and float store (M % 4 = "
+                 "1, 2, 3 and M=1)",
     }]
     serve = {"serve_ms_per_batch_b32": step_ms,
              "serve_ms_per_batch_b32_after_4a": step_ms_early,
@@ -2678,6 +3263,7 @@ def main() -> int:
                                       "dropblock_640": dropblock,
                                       "fused_route_n2401": c1}}))
     log(json.dumps({"rcnn": rcnn}))
+    log(json.dumps({"rcnn_train": rcnn_train}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ heltondetection_tpu_torch.cli --mode train|eval``. FasterRCNN inference
 (ResNet or any registry backbone → FPN or PAFPNv8 → RPN proposals, whose
 per-level NMS and final NMS run the ``nms_mask`` kernel → RoIAlign or
 RoIPool → coupled or decoupled box head) through ``faster_rcnn_infer``,
-``run_eval``, ``load_detector`` and ``BatchingDetector``.
+``run_eval``, ``load_detector`` and ``BatchingDetector``, and its training
+(``faster_rcnn_loss``, whose assigners run the ``iou_matrix`` kernel, and
+``make_rcnn_train_step``) through ``run_train``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).

@@ -4,17 +4,18 @@ heltondetection_tpu/engine/runner.py.
 
 Ported: ``build_dataset`` (COCO, YOLO, DOTA, VOC and VisDrone readers),
 ``build_model`` (YOLOv5, over a registry backbone too, and FasterRCNN),
-``run_train`` for YOLOv5 (single process, one card) with its in-loop
-``run_eval``, DropBlock, remat, autoanchor, multi-scale and the on-device
-augmentation (``train.device_aug``), ``run_eval`` (single process; YOLOv5's
-fused route on kernel ``nms_fixpoint``, its unfused one and FasterRCNN's
-on ``nms_mask``), the eval forward and ``load_detector`` for both
-families. Parts not ported raise ``NotImplementedError`` naming their
-ROADMAP item: ``run_test`` (A9, A13), the eval artifacts and ``dump_json``
-(A9), training over a registry backbone and ``backbone_pretrain`` (A10),
-training FasterRCNN (A12), more than one device (A14), int8 (A15). The
-native C++ loader (A6) is not ported either: its configs train on the
-Python pipelines, and say so in the log.
+``run_train`` for both families (single process, one card) with its
+in-loop ``run_eval``: for YOLOv5 DropBlock, remat, autoanchor, multi-scale
+and the on-device augmentation (``train.device_aug``); for FasterRCNN its
+two-stage step with the backbone's frozen stages and
+``train.backbone_pretrain`` (torchvision ResNet weights). ``run_eval``
+(single process; YOLOv5's fused route on kernel ``nms_fixpoint``, its
+unfused one and FasterRCNN's on ``nms_mask``), the eval forward and
+``load_detector`` for both families. Parts not ported raise
+``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9,
+A13), the eval artifacts and ``dump_json`` (A9), more than one device
+(A14), int8 (A15). The native C++ loader (A6) is not ported either: its
+configs train on the Python pipelines, and say so in the log.
 """
 
 from __future__ import annotations
@@ -196,8 +197,17 @@ def _eval_state(saved: dict) -> dict:
 
 def _frozen_prefixes(mc) -> tuple:
     """The optimizer's freeze set: the whole backbone for
-    ``freeze_backbone`` (the reference's frozen-backbone ablation)."""
-    return ("backbone",) if mc.freeze_backbone else ()
+    ``freeze_backbone`` (the reference's frozen-backbone ablation), else
+    FasterRCNN's ``backbone_frozen_stages`` (the stem and layer1 by
+    default, torchvision's ``trainable_backbone_layers=3``)."""
+    if mc.freeze_backbone:
+        return ("backbone",)
+    if mc.family == "faster_rcnn" and mc.backbone_frozen_stages > 0:
+        from heltondetection_tpu_torch.models.backbones import \
+            frozen_stage_prefixes
+        return frozen_stage_prefixes(mc.backbone or "resnet50",
+                                     mc.backbone_frozen_stages)
+    return ()
 
 
 def _net_like(model: Model, device, packed_head: bool = False) -> Model:
@@ -320,26 +330,43 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
 
 
 def _check_train_config(cfg: ExperimentConfig) -> None:
-    """Raise for the train options that are not ported, naming their
-    ROADMAP item."""
+    """Raise for the train options that are not ported (naming their
+    ROADMAP item) or that the reference refuses."""
     mc, tc = cfg.model, cfg.train
-    if mc.family != "yolov5":
-        raise NotImplementedError(
-            f"training the {mc.family} family is not ported yet (ROADMAP "
-            f"A12)")
-    if (mc.backbone or "cspdarknet") != "cspdarknet":
-        raise NotImplementedError(
-            f"training yolov5 over backbone {mc.backbone!r}: the registry "
-            f"backbones' train-mode knobs are not ported yet (ROADMAP A10)")
-    if tc.backbone_pretrain:
-        raise NotImplementedError("train.backbone_pretrain (ResNet weights "
-                                  "for the backbone registry) is not ported "
-                                  "yet (ROADMAP A10)")
     if tc.spatial_shards > 1:
         # the reference refuses spatial_shards with device_aug too
         raise NotImplementedError("train.spatial_shards and every other "
                                   "multi-device path are not ported yet "
                                   "(ROADMAP A14)")
+    if mc.family == "faster_rcnn" and tc.multi_scale:
+        raise ValueError(
+            "train.multi_scale is a yolov5 feature (the two-stage proposal "
+            "and sampling budgets are tuned per resolution: train separate "
+            "faster_rcnn configs per size instead)")
+
+
+class _XyxyTargets:
+    """A train pipeline whose samples also carry their cxcywh gt boxes as
+    xyxy pixels (``gt_boxes_xyxy``, float32), made on the host: the targets
+    of FasterRCNN's step."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __len__(self):
+        return len(self.pipe)
+
+    def sample(self, i: int, epoch: int = 0):
+        s = self.pipe.sample(i, epoch)
+        b = np.asarray(s["gt_boxes"], np.float32)
+        half = b[..., 2:] * np.float32(0.5)
+        s["gt_boxes_xyxy"] = np.concatenate([b[..., :2] - half,
+                                             b[..., :2] + half], axis=-1)
+        return s
+
+    def close(self) -> None:
+        if hasattr(self.pipe, "close"):
+            self.pipe.close()
 
 
 def run_train(cfg: ExperimentConfig, resume: bool = True, *, device=None
@@ -365,13 +392,19 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     ``ckpt_interval`` epochs (the newest three kept) and a best-AP
     snapshot in ``cfg.best_ckpt_dir`` with ``best.json`` beside the run;
     ``resume`` continues from the newest checkpoint in ``cfg.ckpt_dir``.
-    Single process, one device."""
+    A FasterRCNN takes its gt boxes as xyxy (made on the host) and draws
+    its sampling from one generator seeded by ``train.seed + 1``, whose
+    state the checkpoints keep, so a resumed run continues its stream;
+    ``train.backbone_pretrain`` loads a torchvision ResNet into its
+    backbone before the EMA is made. ``device_aug``, ``autoanchor`` and
+    ``multi_scale`` are YOLOv5's. Single process, one device."""
     from heltondetection_tpu_torch.data.augment import (DeviceAugPipeline,
                                                         TrainPipeline)
     from heltondetection_tpu_torch.data.loader import TrainLoader
     from heltondetection_tpu_torch.models.common import init_weights
     from heltondetection_tpu_torch.train.schedule import make_optimizer
     from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_rcnn_train_step,
                                                          make_train_step,
                                                          multiscale_sizes,
                                                          resize_batch_to)
@@ -386,18 +419,20 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     tb = TBWriter(cfg.log_dir)
     nc = train_ds.num_classes or cfg.model.num_classes
     cfg.model.num_classes = nc
+    is_rcnn = cfg.model.family == "faster_rcnn"
     model = build_model(cfg.model, nc)
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(dev, memory_format=torch.channels_last)
-    if cfg.train.autoanchor:
+    tc = cfg.train
+    device_aug = tc.device_aug and not is_rcnn
+    if tc.autoanchor and not is_rcnn:
         _autoanchor(cfg, train_ds, logger)
 
-    tc = cfg.train
     if tc.native_loader:
         logger.info("the native train loader is not ported (ROADMAP A6, the "
                     "next slice); using the Python %s",
-                    "DeviceAugPipeline" if tc.device_aug else "TrainPipeline")
-    if tc.device_aug:
+                    "DeviceAugPipeline" if device_aug else "TrainPipeline")
+    if device_aug:
         pipe = DeviceAugPipeline(train_ds, cfg.model.img_size,
                                  max_boxes=cfg.data.max_boxes, seed=tc.seed,
                                  mosaic_p=tc.mosaic_p)
@@ -408,6 +443,9 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
                              flip_p=tc.flip_p, mixup_p=tc.mixup_p,
                              max_boxes=cfg.data.max_boxes, seed=tc.seed)
         keys = TrainLoader.KEYS
+        if is_rcnn:
+            pipe = _XyxyTargets(pipe)
+            keys = ("image", "gt_boxes_xyxy", "gt_cls", "gt_mask")
     loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
                          num_workers=tc.num_workers, device=dev, keys=keys)
     steps_per_epoch = loader.steps_per_epoch()
@@ -423,37 +461,50 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
         weight_decay=cfg.train.weight_decay,
         final_lr_frac=cfg.train.final_lr_frac, grad_clip=cfg.train.grad_clip,
         frozen_prefixes=_frozen_prefixes(cfg.model))
-    loss_cfg = YoloLossConfig(num_classes=nc, img_size=cfg.model.img_size,
-                              focal=cfg.train.focal,
-                              label_smoothing=cfg.train.label_smoothing,
-                              anchors=_cfg_anchors(cfg))
-    model.packed_train = True        # the same weights, the loss's layout
-    base_step = make_train_step(loss_cfg, use_ema=tc.ema, accum_steps=accum,
-                                seed=tc.seed)
-    augmented = _device_augment(cfg, dev) if tc.device_aug else None
-    sized = None
-    if tc.multi_scale:
-        ms_sizes = multiscale_sizes(cfg.model.img_size, tc.multi_scale)
-        logger.info("multi-scale training over buckets %s", ms_sizes)
+    rng = None
+    if is_rcnn:
+        rng = torch.Generator(dev).manual_seed(tc.seed + 1)
+        step_fn = make_rcnn_train_step(use_ema=tc.ema, accum_steps=accum,
+                                       seed=tc.seed)
+    else:
+        loss_cfg = YoloLossConfig(num_classes=nc,
+                                  img_size=cfg.model.img_size,
+                                  focal=cfg.train.focal,
+                                  label_smoothing=cfg.train.label_smoothing,
+                                  anchors=_cfg_anchors(cfg))
+        model.packed_train = True    # the same weights, the loss's layout
+        base_step = make_train_step(loss_cfg, use_ema=tc.ema,
+                                    accum_steps=accum, seed=tc.seed)
+        augmented = _device_augment(cfg, dev) if device_aug else None
+        sized = None
+        if tc.multi_scale:
+            ms_sizes = multiscale_sizes(cfg.model.img_size, tc.multi_scale)
+            logger.info("multi-scale training over buckets %s", ms_sizes)
 
-        def sized(step, batch):
-            # the reference's seeded, resume-stable draw per global step
-            i = int(np.random.default_rng(
-                (tc.seed << 20) ^ step).integers(len(ms_sizes)))
-            return resize_batch_to(batch, ms_sizes[i])
+            def sized(step, batch):
+                # the reference's seeded, resume-stable draw per global step
+                i = int(np.random.default_rng(
+                    (tc.seed << 20) ^ step).integers(len(ms_sizes)))
+                return resize_batch_to(batch, ms_sizes[i])
 
-    def step_fn(state, batch):
-        if augmented is not None:      # on the card, before the model
-            batch = augmented(state.step, batch)
-        if sized is not None:
-            batch = sized(state.step, batch)
-        return base_step(state, batch)
+        def step_fn(state, batch):
+            if augmented is not None:      # on the card, before the model
+                batch = augmented(state.step, batch)
+            if sized is not None:
+                batch = sized(state.step, batch)
+            return base_step(state, batch)
 
-    if cfg.train.pretrain_ckpt:
-        n = ckpt_io.load_params_for_transfer(cfg.train.pretrain_ckpt, model)
+    if tc.backbone_pretrain:
+        from heltondetection_tpu_torch.utils.torch_convert import \
+            graft_backbone
+        n = graft_backbone(model, tc.backbone_pretrain)
+        logger.info("loaded a pretrained backbone (%d tensors) from %s", n,
+                    tc.backbone_pretrain)
+    if tc.pretrain_ckpt:
+        n = ckpt_io.load_params_for_transfer(tc.pretrain_ckpt, model)
         logger.info("loaded %d transfer tensors from %s", n,
-                    cfg.train.pretrain_ckpt)
-    state = create_train_state(model, opt, use_ema=cfg.train.ema)
+                    tc.pretrain_ckpt)
+    state = create_train_state(model, opt, use_ema=tc.ema, rng=rng)
 
     start_epoch = 0
     if resume and ckpt_io.latest_step(cfg.ckpt_dir,
@@ -466,6 +517,19 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
         except (ValueError, KeyError) as e:
             logger.warning("ignoring incompatible checkpoint in %s: %s",
                            cfg.ckpt_dir, e)
+    mc = cfg.model
+    if is_rcnn and start_epoch == 0 and \
+            (mc.backbone_norm_eval or mc.backbone_frozen_stages > 0) and \
+            not tc.backbone_pretrain and not tc.pretrain_ckpt:
+        # the FrozenBN and frozen-stage defaults assume pretrained weights;
+        # from a random init they pin a random stem and unit statistics
+        logger.warning(
+            "faster_rcnn is training FROM SCRATCH but backbone_norm_eval=%s/"
+            "backbone_frozen_stages=%d assume a pretrained backbone: set "
+            "train.backbone_pretrain (a torchvision ResNet .pth) or, for "
+            "from-scratch runs, set model.backbone_norm_eval=False and "
+            "backbone_frozen_stages=0", mc.backbone_norm_eval,
+            mc.backbone_frozen_stages)
 
     logger.info("training %s: %d epochs x %d steps on %s", cfg.name,
                 cfg.train.epochs, steps_per_epoch, dev)

@@ -96,11 +96,9 @@ def _csp_factory(variant):
     d, w = VARIANTS[variant]
 
     def make(dropblock_p, norm_eval, frozen_stages, remat=False):
-        # norm_eval and frozen_stages shape the training of a CSPDarknet
-        # over the registry, which is not ported yet (ROADMAP A10)
-        del norm_eval, frozen_stages
         return CSPDarknet(d, w, dropblock_p=dropblock_p, remat=remat,
-                          include_c2=True)
+                          include_c2=True, norm_eval=norm_eval,
+                          frozen_stages=frozen_stages)
     return make
 
 

@@ -1,4 +1,4 @@
-"""RoIAlign and RoIPool, forward; counterpart of
+"""RoIAlign and RoIPool; counterpart of
 heltondetection_tpu/ops/roi_align.py (torchvision semantics: ``aligned``
 False by default, so no half-pixel shift and rois at least 1 px; a fixed
 sampling ratio; RoIPool as a 4-sample max per bin on the quantized grid).
@@ -14,8 +14,16 @@ y- and xy-rolled copies, so one row holds all four taps) is a TPU layout
 for the same function; its roll wraparound only ever meets a tap weight of
 exactly 0, where this version clamps the tap index instead, as torchvision
 does. The tap weights are in the feature dtype with the 1/s² bin mean
-folded in, and the result is in the feature dtype. The backward pass comes
-with the training slice.
+folded in, and the result is in the feature dtype.
+
+The backward pass of RoIAlign is the reference's custom VJP
+(``_wgather_pool_bwd``), an ``autograd.Function`` here
+(:class:`_WeightedGather`): it builds every tap's row, its weight times its
+bin's cotangent, in one pass and scatter-adds them into the pyramid's rows
+(``index_add_``). The rois and the tap weights get no gradient, as in the
+reference, where the rois are stop-gradient. RoIPool keeps autograd's
+``amax`` backward, which splits a bin's cotangent among equal maxima as
+JAX's does.
 """
 
 from __future__ import annotations
@@ -23,6 +31,31 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+
+class _WeightedGather(torch.autograd.Function):
+    """``out[i] = Σ_t w[i, t] · flat[idx[i, t]]``: flat (rows, C), idx and
+    w (bins, T) → (bins, C) in flat's dtype, by one row gather and a
+    batched matmul. Its backward scatter-adds ``w[i, t] · g[i]`` into row
+    ``idx[i, t]`` of a zero (rows, C) gradient, in flat's dtype; idx and w
+    get none."""
+
+    @staticmethod
+    def forward(ctx, flat, idx, w):
+        n_bins, t = idx.shape
+        taps = flat[idx.reshape(-1)].reshape(n_bins, t, flat.shape[1])
+        ctx.save_for_backward(idx, w)
+        ctx.rows = flat.shape[0]
+        return torch.bmm(w[:, None, :], taps)[:, 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        c = g.shape[1]
+        upd = w[:, :, None] * g.to(w.dtype)[:, None, :]
+        grad = torch.zeros((ctx.rows, c), dtype=w.dtype, device=g.device)
+        grad.index_add_(0, idx.reshape(-1), upd.reshape(-1, c))
+        return grad, None, None
 
 
 def _bilinear_gather(feat: torch.Tensor, ys: torch.Tensor,
@@ -196,6 +229,6 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     w4 = torch.stack([(1 - ly) * (1 - lx), (1 - ly) * lx,
                       ly * (1 - lx), ly * lx], dim=-1)
     w4 = (w4 * (valid[..., None] * (1.0 / (s * s)))).to(flat.dtype)
-    taps = flat[idx4.reshape(-1)].reshape(n_bins, 4 * s * s, c)
-    out = torch.bmm(w4.reshape(n_bins, 1, 4 * s * s), taps)
+    out = _WeightedGather.apply(flat, idx4.reshape(n_bins, 4 * s * s),
+                                w4.reshape(n_bins, 4 * s * s))
     return out.reshape(b, r, out_size, out_size, c)

@@ -47,6 +47,16 @@ def warmup_cosine(base_lr: float, total_steps: int, warmup_steps: int,
     return lr
 
 
+def global_norm(tensors) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together (one device), as a float32
+    0-d tensor, each tensor's sum of squares accumulated in float64:
+    torch's float32 norm of one tensor of millions of elements is off by
+    up to 5e-4 relative on the CPU (a 12.8M-element dense layer's
+    gradient), where ``optax.global_norm`` is not."""
+    norms = torch._foreach_norm(list(tensors), 2.0, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
+
+
 def param_path(name: str) -> str:
     """A torch parameter name as the reference's "/"-joined flax path
     (``backbone.stem.conv.weight`` → ``backbone/stem/conv/weight``), the
@@ -85,13 +95,14 @@ class Optimizer:
     @torch.no_grad()
     def clip_(self) -> None:
         """Scale the trainable grads by ``max / norm`` when their global
-        norm exceeds ``grad_clip`` (one fused norm, no host read)."""
+        norm (:func:`global_norm`) exceeds ``grad_clip`` (one fused norm,
+        no host read)."""
         if self.grad_clip is None:
             return
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads:
             return
-        norm = torch.nn.utils.get_total_norm(grads)
+        norm = global_norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                             self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)

@@ -4,7 +4,8 @@ A checkpoint directory holds one sub-directory per step, ``<step>/``, with:
 
 - ``train_state.pt``: ``{"model": state_dict, "optimizer": the optimizer's
   state (moments, update count, schedule), "ema": the EMA of the
-  parameters by name or None, "step": int}``, what a resumed run restores;
+  parameters by name or None, "step": int, "rng": the state of the step's
+  generator or None}``, what a resumed run restores;
 - ``eval_variables.pt``: ``{"model": state_dict, "ema": state_dict or
   None, "step": int}``, the inference fields (the EMA state dict holds the
   EMA parameters and the model's BatchNorm statistics), what eval, serving
@@ -65,11 +66,13 @@ def save_eval_variables(ckpt_dir: str, model_state: Dict[str, torch.Tensor],
 
 def snapshot(state) -> Dict[str, Any]:
     """The fields of a ``train.trainer.TrainState`` as CPU tensors:
-    ``{"model", "optimizer", "ema", "step"}``, the ``train_state.pt``
-    layout. A CUDA tensor's copy waits for the work that writes it."""
+    ``{"model", "optimizer", "ema", "step", "rng"}``, the
+    ``train_state.pt`` layout. A CUDA tensor's copy waits for the work
+    that writes it."""
     return {"model": _on_cpu(state.model.state_dict()),
             "optimizer": _on_cpu(state.optimizer.state_dict()),
-            "ema": _on_cpu(state.ema), "step": int(state.step)}
+            "ema": _on_cpu(state.ema), "step": int(state.step),
+            "rng": None if state.rng is None else state.rng.get_state()}
 
 
 def _write_snapshot(ckpt_dir: str, snap: Dict[str, Any],
@@ -170,7 +173,8 @@ def restore_eval_variables(ckpt_dir: str, step: Optional[int] = None) -> dict:
 
 def restore_state(ckpt_dir: str, state, step: Optional[int] = None):
     """Load the newest (or the given) step's ``train_state.pt`` into
-    ``state`` (a ``train.trainer.TrainState``) and return it. A checkpoint
+    ``state`` (a ``train.trainer.TrainState``; its generator continues the
+    saved one's stream) and return it. A checkpoint
     of another model (other keys or shapes) raises ValueError before
     anything is changed."""
     saved = _load(ckpt_dir, step, STATE_FILE)
@@ -188,6 +192,8 @@ def restore_state(ckpt_dir: str, state, step: Optional[int] = None):
             for k, v in state.ema.items():
                 v.copy_(saved["ema"][k])
     state.step = int(saved["step"])
+    if state.rng is not None and saved.get("rng") is not None:
+        state.rng.set_state(saved["rng"])
     return state
 
 

@@ -203,19 +203,21 @@ def test_load_detector_matches_jax_make_detector(tiny_variant, tmp_path):
 
 
 def test_not_ported_parts_raise_by_name(tmp_path):
-    """Inference builds for both families and every registry backbone now;
-    training FasterRCNN (A12) or YOLOv5 over a registry backbone (A10)
-    still raises, by name; an unknown family or backbone is a ValueError."""
+    """Inference builds for both families and every registry backbone;
+    training FasterRCNN and YOLOv5 over a registry backbone passes the
+    train config check, more than one device (A14) still raises by name;
+    an unknown family or backbone is a ValueError."""
     from heltondetection_tpu_torch.models.faster_rcnn import FasterRCNN
     mc = p_base.ModelConfig
     rcnn = runner.build_model(mc(family="faster_rcnn"), 20)
     assert isinstance(rcnn, FasterRCNN) and rcnn.cfg.backbone == "resnet50"
     swap = runner.build_model(mc(backbone="cspdarknet_l"), 20)
     assert swap.backbone_name == "cspdarknet_l"
-    for change, item in (({"family": "faster_rcnn"}, "A12"),
-                         ({"backbone": "cspdarknet_l"}, "A10")):
+    for change in ({"family": "faster_rcnn"}, {"backbone": "cspdarknet_l"}):
         cfg = p_base.ExperimentConfig(model=mc(**change))
-        with pytest.raises(NotImplementedError, match=item):
+        runner._check_train_config(cfg)
+        cfg.train.spatial_shards = 2
+        with pytest.raises(NotImplementedError, match="A14"):
             runner._check_train_config(cfg)
     with pytest.raises(ValueError, match="unknown backbone"):
         runner.build_model(mc(backbone="resnet7"), 20)

@@ -376,8 +376,8 @@ def test_load_detector_and_serving_match_hand_built(tmp_path):
 def test_cli_eval_runs_faster_rcnn(tmp_path, monkeypatch):
     """``cli.py --mode eval --device cpu`` on a FasterRCNN config file:
     ``run_eval`` scores the config's checkpoint on a COCO val set (the
-    unfused route, whatever ``eval.fused`` says); training it still
-    raises, naming A12."""
+    unfused route, whatever ``eval.fused`` says); training it with
+    ``multi_scale`` is refused, as the reference refuses it."""
     from synth_data import build_coco_dataset
     _, variables, _ = _models("pafpnv8-decoupled-align-p2p5")
     ann, imgs = build_coco_dataset(str(tmp_path / "coco"), n_images=3,
@@ -403,5 +403,6 @@ def test_cli_eval_runs_faster_rcnn(tmp_path, monkeypatch):
                      "--device", "cpu"]) == 0
     assert len(scored) == 1 and scored[0]["num_images"] == 3
     assert np.isfinite(scored[0]["AP"])
-    with pytest.raises(NotImplementedError, match="A12"):
+    cfg.train.multi_scale = (0.5, 1.0)
+    with pytest.raises(ValueError, match="multi_scale"):
         runner.train_from_datasets(cfg, [], None, device="cpu")

@@ -328,8 +328,9 @@ def test_backbone_swap_config_builds_through_the_registry():
     """The published yolov5_l_voc_640_backbone_swap: cspdarknet_l from the
     registry (C2 tapped, the last three features used), with the state
     dict of the v6.1 YOLOv5l, whose names the flax tree maps onto
-    (``test_yolov5_over_registry_backbone_matches_jax``); its training
-    still raises (A10)."""
+    (``test_yolov5_over_registry_backbone_matches_jax``); it passes the
+    train config check, with the registry's train-mode knobs at their
+    defaults."""
     import os
     path = os.path.join(os.path.dirname(runner.__file__), "..", "configs",
                         "yolov5_l_voc_640_backbone_swap.py")
@@ -343,8 +344,8 @@ def test_backbone_swap_config_builds_through_the_registry():
     want = {k: v.shape for k, v in plain.state_dict().items()}
     assert {k: v.shape for k, v in model.state_dict().items()} == want
     model.load_state_dict(plain.state_dict(), strict=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        runner._check_train_config(cfg)
+    runner._check_train_config(cfg)
+    assert not model.backbone.norm_eval and model.backbone.frozen_stages == 0
 
 
 def test_backbone_registry_matches_jax():

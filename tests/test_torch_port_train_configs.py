@@ -147,15 +147,11 @@ YOLO_CONFIGS = sorted(os.path.basename(p) for p in
 
 @pytest.mark.parametrize("name", YOLO_CONFIGS)
 def test_every_yolov5_config_trains_but_the_backbone_swap(name):
-    """16 of the 17 YOLOv5 configs pass the train config check; the
-    backbone swap waits for the backbone registry (A10)."""
+    """Every YOLOv5 config passes the train config check, the backbone
+    swap too now that the registry's backbones train."""
     cfg = p_base.load_config(os.path.join(CONFIG_DIR, name))
-    if name == "yolov5_l_voc_640_backbone_swap.py":
-        with pytest.raises(NotImplementedError, match="A10"):
-            runner._check_train_config(cfg)
-    else:
-        runner._check_train_config(cfg)
-        assert cfg.data.format in ("coco", "yolo", "dota", "voc", "visdrone")
+    runner._check_train_config(cfg)
+    assert cfg.data.format in ("coco", "yolo", "dota", "voc", "visdrone")
 
 
 def test_fused_nms_route_by_size():

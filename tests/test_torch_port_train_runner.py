@@ -285,11 +285,12 @@ def test_entry_points_raise_without_cuda(entry, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change, item", [
-    ({"model.backbone": "cspdarknet_l"}, "A10"),
-    ({"train.backbone_pretrain": "r50.pth"}, "A10"),
+    ({"model.backbone": "cspdarknet_l", "train.spatial_shards": 2}, "A14"),
+    ({"train.backbone_pretrain": "r50.pth", "train.spatial_shards": 2},
+     "A14"),
     ({"train.spatial_shards": 2}, "A14"),
     ({"train.spatial_shards": 2, "train.device_aug": True}, "A14"),
-    ({"model.family": "faster_rcnn"}, "A12"),
+    ({"model.family": "faster_rcnn", "train.spatial_shards": 2}, "A14"),
 ])
 def test_not_ported_train_options_raise(change, item, tmp_path):
     cfg = p_base.ExperimentConfig(work_dir=str(tmp_path))
