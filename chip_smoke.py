@@ -190,6 +190,41 @@ fails:
          and its loss, the backward, optimizer + EMA; RoIAlign's backward
          alone) and its FLOPs counted from the conv and dense shapes with
          their share of the bf16 peak, on a {"rcnn_train": ...} line;
+   i. export, run_test and the eval artifacts, each path with
+      the counts reset just before and read just after:
+      1. export_model of yolov5_s_coco_640 (phase 4a's seed-0 weights;
+         test.conf_thres 0.001, so random weights give dets) and of
+         faster_rcnn_pafpn_decoupled_coco_832 (seed 0, predictors scaled)
+         to .pt2 files in a temporary directory under runs/, each loaded
+         with load_serving_fn and run on 3 seeded uint8 frames at B=1:
+         dets bit-equal to the eager serving function's on the card,
+         nms_mask launched 1 and 6 times a call and nothing else; the
+         export's and the load's seconds, and ms a call by CUDA events of
+         the loaded program and of the eager function, in turns, with the
+         device ms and kernel launches of one call of each (profiler);
+      2. run_test of both configs (the same weights written as
+         checkpoints) on an in-memory frame (readers.imread_rgb swapped for
+         a lookup) with out_path=None, since the rendered frame needs cv2:
+         dets finite and inside the frame, nms_fixpoint launched for
+         YOLOv5 (nms_mask not), nms_mask 7 times for FasterRCNN
+         (faster_rcnn_infer's 6 and the single-label postprocess); then
+         _save_heatmap_panels writes the panels with the port's PNG
+         writer: one panel of the image's size a level (3 x 640, 5 x 832),
+         the class-score panel's generate_proposals launching nms_mask 5
+         times;
+      3. run_eval(dump_json=..., verbose=True) of yolov5_s_coco_640 over 64
+         frames whose forward is swapped for phase 4b's painted raw maps
+         (the unfused route): AP > 0.99, the JSON as long as the dets and
+         its category ids mapped back, the classwise table and the FLOPs
+         line logged and, with no matplotlib, the rendering-unavailable
+         line; the native matcher built and called; the Evaluator's img/s
+         over phase 4b's 64 frames with the native matcher and with the
+         numpy one in turns, three each (with its summarize, where the
+         matching runs, and without), the same stats; YOLOv5s's counted GFLOPs at 640²
+         within 5 % of the 16.5 Ultralytics publishes for v6.1;
+      4. each kernel by CUDA events through its torch.library op and
+         through its ctypes wrapper, in turns, at the kernel table's
+         shapes;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -214,15 +249,18 @@ fails:
    so library_ms is null for every kernel.
 
 The lines before the last are the serve, eval, serving, train,
-train_configs, rcnn and rcnn_train lines, the kernels line, {"kernels":
-[...]} (nms_fixpoint's entry counts the in-loop evals' launches as
-launches_train_eval and launches_train_eval_visdrone_1280, nms_mask's the
-fused route's above N=2400 as launches_fused_route_n2401 and FasterRCNN's
-as launches_rcnn_infer, launches_rcnn_eval and launches_rcnn_train, with
-its largest N; iou_matrix's FasterRCNN training launches as
-launches_rcnn_train and its times at the assigner's shape as
-rcnn_assigner), and the card's nvidia-smi line; the last line is {"ok":
-true, "device": {...}}.
+train_configs, rcnn, rcnn_train and export_test_artifacts lines, the
+kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
+evals' launches as launches_train_eval and
+launches_train_eval_visdrone_1280 and run_test's as
+launches_run_test_yolov5, nms_mask's the fused route's above N=2400 as
+launches_fused_route_n2401, FasterRCNN's as launches_rcnn_infer,
+launches_rcnn_eval and launches_rcnn_train, the exported programs' per call
+and run_test's, with its largest N; iou_matrix's FasterRCNN training
+launches as launches_rcnn_train and its times at the assigner's shape as
+rcnn_assigner; each entry's op_ms the time through its custom op and
+through its wrapper), and the card's nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -374,6 +412,21 @@ def device_busy_ms(fn) -> float:
     return sum(evt.device_time_total for evt in prof.key_averages()) / 1e3
 
 
+def device_work(fn) -> tuple:
+    """(device ms, kernels launched) of one call of fn(), from a CUDA-only
+    torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    return (sum(e.device_time_total for e in evts) / 1e3,
+            sum(e.count for e in evts))
+
+
 def nms_bound_ms(b: int, n: int) -> tuple:
     """Least time for the keep mask of (b, n, 4) boxes: bytes (boxes read,
     mask written) over HBM rate, pairwise tests over the f32 rate."""
@@ -463,6 +516,14 @@ def eval_batches(rng, n_frames, batch, img_size, letterbox_np):
                         "scale": scales, "pad_x": pxs, "pad_y": pys,
                         "orig_hw": hws})
     return batches, gts
+
+
+# the gt boxes (cx, cy, w, h at 640²) and classes that phases 4b and 4i.3
+# paint into raw head maps
+PAINTED_GTS = [(100.0, 120.0, 60.0, 80.0), (320.0, 300.0, 200.0, 150.0),
+               (500.0, 520.0, 24.0, 30.0), (200.0, 450.0, 300.0, 260.0),
+               (560.0, 90.0, 90.0, 60.0), (420.0, 600.0, 12.0, 16.0)]
+PAINTED_CLS = [0, 17, 42, 79, 5, 63]
 
 
 SMOKE_CONFIG = """\
@@ -2349,6 +2410,380 @@ def rcnn_train_phase(dev, smi: str) -> dict:
     return out
 
 
+# phase 4i writes its programs (about 30 MB for YOLOv5s, 180 MB for the
+# FasterRCNN) and panels into a temporary directory under runs/, which
+# .gitignore lists, and deletes it at the end
+RUNS_DIR = os.path.join(ROOT, "runs")
+YOLO_CONFIG = "configs/yolov5_s_coco_640.py"
+ULTRALYTICS_V61_YOLOV5S_GFLOPS = 16.5   # Ultralytics' v6.1 table, 640²
+
+
+def png_size(path: str) -> tuple:
+    """(width, height) of a PNG, from its IHDR chunk."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def export_phase(dev, smi: str, model, work: str) -> dict:
+    """Phase 4i.1: export_model of yolov5_s_coco_640 (phase 4a's seed-0
+    weights; test.conf_thres 0.001, so random weights give dets) and of
+    faster_rcnn_pafpn_decoupled_coco_832 (seed 0, predictors scaled) into
+    ``work``, each loaded with load_serving_fn and run on seeded uint8
+    frames at B=1: dets equal to the eager serving function's on the card,
+    nms_mask launched 1 and 6 times a call, the export's seconds and ms a
+    call of the loaded program against the eager function."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.engine import export as E
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    rng = np.random.default_rng(41)
+    ycfg = rcnn_config(YOLO_CONFIG)
+    ycfg = dataclasses.replace(ycfg, test=dataclasses.replace(
+        ycfg.test, conf_thres=0.001))
+    rcfg = rcnn_config(RCNN_CONFIG)
+    rs = rcfg.model.img_size
+    xr = torch.from_numpy(rng.integers(0, 256, (2, rs, rs, 3))
+                          .astype(np.float32) / 255.0).to(dev)
+    rmodel = rcnn_model(rcfg, dev, 0, xr)
+    out = {"card": smi}
+    cases = (("yolov5_s_coco_640", ycfg, model, 1,
+              E.yolov5_serve(80, conf_thres=ycfg.test.conf_thres,
+                             iou_thres=ycfg.test.iou_thres)),
+             ("faster_rcnn_pafpn_decoupled_coco_832", rcfg, rmodel, 6,
+              E.faster_rcnn_serve))
+    for name, cfg, net, per_call, serve in cases:
+        size = cfg.model.img_size
+        path = os.path.join(work, f"{name}.pt2")
+        t0 = time.perf_counter()
+        E.export_model(cfg, net, path, device=dev)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = E.load_serving_fn(path)
+        load_s = time.perf_counter() - t0
+        frames = [torch.from_numpy(rng.integers(0, 256, (1, size, size, 3))
+                                   .astype(np.uint8)).to(dev)
+                  for _ in range(3)]
+        fn(frames[0])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = [fn(f) for f in frames]
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+
+        def eager(f, net=net, serve=serve):
+            with torch.inference_mode():
+                return serve(net, f)
+
+        want = [eager(f) for f in frames]
+        bits = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for g, w in zip(got, want) for a, b in zip(g, w))
+        n_dets = sum(int(g[3].sum()) for g in got)
+        log(f"export [{name}]: {export_s:.2f} s export, {load_s:.2f} s "
+            f"load, {os.path.getsize(path) / 1e6:.1f} MB; 3 calls at B=1: "
+            f"launches {counts}, {n_dets} dets, bit-equal to eager: {bits}")
+        if not bits:
+            raise AssertionError(f"the loaded {name} program's dets differ "
+                                 f"from the eager function's")
+        if counts != {"nms_fixpoint": 0, "nms_mask": per_call * 3,
+                      "iou_matrix": 0}:
+            raise AssertionError(f"the loaded {name} program launched "
+                                 f"{counts}, not nms_mask {per_call} a call")
+        if n_dets == 0 or not all(bool(torch.isfinite(g[0]).all())
+                                  for g in got):
+            raise AssertionError(f"the loaded {name} program gave no or "
+                                 f"non-finite dets")
+        loaded_ms, eager_ms = [], []
+        for timed in ("loaded", "eager", "eager", "loaded"):
+            f = fn if timed == "loaded" else eager
+            (loaded_ms if timed == "loaded" else eager_ms).append(
+                cuda_ms(lambda f=f: f(frames[0]), 10))
+        busy = {"loaded": device_work(lambda: fn(frames[0])),
+                "eager": device_work(lambda: eager(frames[0]))}
+        log(f"export [{name}]: ms a call by CUDA events, loaded "
+            f"{loaded_ms[0]:.3f} / {loaded_ms[1]:.3f}, eager "
+            f"{eager_ms[0]:.3f} / {eager_ms[1]:.3f}; device ms and kernels "
+            f"a call (profiler): loaded {busy['loaded']}, eager "
+            f"{busy['eager']} ({smi})")
+        out[name] = {"export_s": export_s, "load_s": load_s,
+                     "pt2_mb": os.path.getsize(path) / 1e6,
+                     "launches_per_call": counts["nms_mask"] / 3,
+                     "dets": n_dets, "bit_equal": bits,
+                     "loaded_ms": loaded_ms, "eager_ms": eager_ms,
+                     "loaded_device_ms_kernels": busy["loaded"],
+                     "eager_device_ms_kernels": busy["eager"]}
+    return out, rmodel
+
+
+def run_test_phase(dev, smi: str, model, rmodel, work: str) -> dict:
+    """Phase 4i.2: run_test of both configs (their seed-0 weights written
+    as checkpoints) on in-memory frames (readers.imread_rgb swapped for a
+    lookup) with out_path=None, the rendered frame needing cv2: YOLOv5
+    launches nms_fixpoint, FasterRCNN nms_mask 7 times (its Detector:
+    faster_rcnn_infer's 6 and the single-label postprocess); then _save_heatmap_panels writes the panels with the
+    port's PNG writer into ``work`` (FasterRCNN's class-score panel runs
+    generate_proposals: 5 more nms_mask launches), one panel of the image's
+    size a level."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.data import readers
+    from heltondetection_tpu_torch.engine import runner
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.utils.ckpt import save_eval_variables
+    rng = np.random.default_rng(42)
+    out = {"card": smi}
+    read_orig = readers.imread_rgb
+    cases = (("yolov5_s_coco_640", YOLO_CONFIG, model, 3, "nms_fixpoint",
+              (720, 1280)),
+             ("faster_rcnn_pafpn_decoupled_coco_832", RCNN_CONFIG, rmodel, 5,
+              "nms_mask", (600, 800)))
+    for name, config, net, levels, kernel, hw in cases:
+        cfg = rcnn_config(config)
+        cfg = dataclasses.replace(
+            cfg, work_dir=work, test=dataclasses.replace(
+                cfg.test, conf_thres=0.001, save_heatmaps=True))
+        save_eval_variables(cfg.ckpt_dir, net.state_dict(), 1)
+        frame = rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+        source = os.path.join(work, f"{name}.jpg")
+        readers.imread_rgb = {source: frame}.__getitem__
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = runner.run_test(cfg, source, None, device=dev)
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            stem = os.path.join(work, f"{name}_test.png")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            runner._save_heatmap_panels(cfg, net, source, stem,
+                                        device=dev)
+            torch.cuda.synchronize()
+            panels_s = time.perf_counter() - t0
+            panel_counts = dict(launch_counts)
+        finally:
+            readers.imread_rgb = read_orig
+        n_dets = check_dets(frame, (res["boxes"], res["scores"],
+                                    res["classes"]))
+        files = ["heatmaps", "objmaps"] + (["clsmaps"] if levels == 5
+                                           else [])
+        sizes = {k: png_size(f"{stem[:-4]}_{k}.png") for k in files}
+        log(f"run_test [{name}]: {hw[1]}x{hw[0]} frame, {n_dets} dets "
+            f"in {test_s:.2f} s, launches {counts}; panels in "
+            f"{panels_s:.2f} s, launches {panel_counts}, sizes {sizes}")
+        if counts[kernel] < 1 or (kernel == "nms_mask" and
+                                  counts != {"nms_fixpoint": 0,
+                                             "nms_mask": 7,
+                                             "iou_matrix": 0}):
+            raise AssertionError(f"run_test [{name}] launched {counts}")
+        if kernel == "nms_fixpoint" and counts["nms_mask"]:
+            raise AssertionError(f"run_test [{name}] launched nms_mask")
+        size = cfg.model.img_size
+        if any(v != (size * levels, size) for v in sizes.values()):
+            raise AssertionError(f"run_test [{name}] panels {sizes}, "
+                                 f"not {levels} of {size}²")
+        if levels == 5 and panel_counts["nms_mask"] != 5:
+            raise AssertionError(f"the class-score panel launched "
+                                 f"{panel_counts}")
+        out[name] = {"dets": n_dets, "launches": counts,
+                     "panel_launches": panel_counts, "test_s": test_s,
+                     "panels_s": panels_s,
+                     "panel_sizes": {k: list(v)
+                                     for k, v in sizes.items()}}
+    return out
+
+
+class PaintedFrames:
+    """A val set of 640² frames whose gt is PAINTED_GTS: the reader that
+    run_eval's EvalPipeline loads and registers gt from."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.num_classes = 80
+        self.class_names = None
+        self.label_to_cat = {i: 1000 + i for i in range(80)}
+
+    def __len__(self):
+        return self.n
+
+    def load(self, i: int) -> dict:
+        return {"image": np.zeros((640, 640, 3), np.uint8), "img_id": i}
+
+    def gt_for_eval(self, det_eval) -> None:
+        xywh = [(cx - w / 2, cy - h / 2, w, h)
+                for cx, cy, w, h in PAINTED_GTS]
+        for i in range(self.n):
+            det_eval.add_gt(i, xywh, PAINTED_CLS)
+
+
+def artifacts_phase(dev, smi: str, model, evaluator, batches,
+                    gt_eval) -> dict:
+    """Phase 4i.3: run_eval(dump_json=..., verbose=True) of
+    yolov5_s_coco_640 (the unfused route, its forward swapped for phase
+    4b's painted raw maps) over 64 painted frames: AP > 0.99, the JSON as
+    long as the dets, the classwise table, the FLOPs line and (without
+    matplotlib) the rendering-unavailable line logged, the native matcher
+    built and called; then the Evaluator's img/s over phase 4b's 64 frames
+    with the native matcher and with the numpy one, in turns; YOLOv5s's
+    GFLOPs at 640² against Ultralytics' 16.5."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch import native
+    from heltondetection_tpu_torch.engine import runner
+    from heltondetection_tpu_torch.models.yolov5 import decode_full
+    from heltondetection_tpu_torch.utils.flops import model_complexity
+    out = {"card": smi}
+    raws = [torch.from_numpy(r).to(dev)
+            for r in paint_raw_maps(PAINTED_GTS, PAINTED_CLS, 640, 80)]
+
+    def painted_forward(net, nc, anchors=None, device=None):
+        return lambda images: decode_full(
+            [r.expand(images.shape[0], -1, -1, -1) for r in raws], nc)
+
+    ds = PaintedFrames(64)
+    records = LogRecords()
+    fwd_orig = runner.forward_for_eval
+    native.match_calls = 0
+    with tempfile.TemporaryDirectory() as work:
+        cfg = rcnn_config(YOLO_CONFIG)
+        cfg = dataclasses.replace(cfg, work_dir=work, eval=dataclasses.replace(
+            cfg.eval, fused=False, conf_thres=0.1))
+        path = os.path.join(work, "dets.json")
+        runner.forward_for_eval = painted_forward
+        try:
+            reuse = {"ds": ds}
+            t0 = time.perf_counter()
+            stats = runner.run_eval(cfg, model.state_dict(), model,
+                                    dump_json=path, verbose=True,
+                                    _reuse=reuse, device=dev)
+            eval_s = time.perf_counter() - t0
+            matchings = native.match_calls
+        finally:
+            runner.forward_for_eval = fwd_orig
+            records.close()
+        with open(path) as f:
+            dumped = json.load(f)
+    n_dets = sum(len(v) for v in reuse["det"]._dts.values())
+    text = "\n".join(r.getMessage() for r in records.records)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    flops_line = [ln for ln in text.splitlines() if ln.startswith("FLOPs:")]
+    built = native.get_cocoeval_lib() is not None
+    log(f"run_eval(dump_json, verbose) on 64 painted frames: AP "
+        f"{stats['AP']:.6f} in {eval_s:.2f} s, {len(dumped)} JSON dets of "
+        f"{n_dets}; native matcher built {built}, {matchings} matchings in "
+        f"C++; matplotlib {has_mpl}; {flops_line}")
+    if not stats["AP"] > 0.99 or len(dumped) != n_dets or n_dets == 0:
+        raise AssertionError(f"painted run_eval: AP {stats['AP']}, JSON "
+                             f"{len(dumped)} of {n_dets} dets")
+    if {d["category_id"] for d in dumped} - {1000 + c for c in PAINTED_CLS}:
+        raise AssertionError("the JSON's category ids are not mapped back")
+    wanted = ["per-class AP", "FLOPs:"] + (
+        ["eval artifacts:"] if has_mpl else
+        ["eval artifact rendering unavailable"])
+    missing = [w for w in wanted if w not in text]
+    if missing or not built or matchings == 0:
+        raise AssertionError(f"run_eval's artifacts: missing {missing}, "
+                             f"native built {built}, calls {matchings}")
+    for ln in text.splitlines():
+        if ln.startswith(("FLOPs:", "eval artifact")):
+            log(f"  logged: {ln}")
+
+    # the Evaluator over phase 4b's 64 frames: the native matcher and the
+    # numpy one in turns, three times each, the same stats. Its
+    # images_per_sec leaves out the final summarize, where the matching
+    # runs, so the run's whole wall time is read too
+    rates = {"native": [], "numpy": []}
+    whole = {"native": [], "numpy": []}
+    stats_by = {}
+    lib = native.get_cocoeval_lib()
+    for matcher in ("native", "numpy", "numpy", "native", "native",
+                    "numpy"):
+        native._LIB, native._TRIED = (lib, True) if matcher == "native" \
+            else (None, True)
+        try:
+            t0 = time.perf_counter()
+            s = evaluator.run(batches, det_eval=gt_eval())
+            whole[matcher].append(s["num_images"] /
+                                  (time.perf_counter() - t0))
+        finally:
+            native._LIB, native._TRIED = lib, True
+        rates[matcher].append(s["images_per_sec"])
+        stats_by[matcher] = {k: v for k, v in s.items()
+                             if k != "images_per_sec"}
+    log(f"Evaluator over 64 frames (unfused route), img/s with the summarize "
+        f"(its matching): native {whole['native']}, numpy "
+        f"{whole['numpy']}; its images_per_sec (the host accumulate, no "
+        f"summarize): native {rates['native']}, numpy {rates['numpy']} "
+        f"({smi})")
+    if stats_by["native"] != stats_by["numpy"]:
+        raise AssertionError("the native and numpy matchers disagree")
+
+    comp = model_complexity(model, 640)
+    diff = comp["gflops_per_image"] / ULTRALYTICS_V61_YOLOV5S_GFLOPS - 1.0
+    log(f"YOLOv5s at 640²: {comp['gflops_per_image']:.3f} GFLOPs/img, "
+        f"{comp['mparams']:.3f} MParams; Ultralytics v6.1 publishes "
+        f"{ULTRALYTICS_V61_YOLOV5S_GFLOPS} GFLOPs: {diff * 100:+.2f} %")
+    if abs(diff) > 0.05:
+        raise AssertionError("YOLOv5s's counted GFLOPs are over 5 % off "
+                             "Ultralytics' 16.5")
+    out.update({"painted_AP": stats["AP"], "json_dets": len(dumped),
+                "eval_s": eval_s, "native_built": built,
+                "native_matchings": matchings,
+                "matplotlib": has_mpl,
+                "img_per_s_with_summarize_native": whole["native"],
+                "img_per_s_with_summarize_numpy": whole["numpy"],
+                "images_per_sec_native": rates["native"],
+                "images_per_sec_numpy": rates["numpy"],
+                "gflops_per_image_640": comp["gflops_per_image"],
+                "mparams": comp["mparams"],
+                "gflops_vs_ultralytics": diff})
+    return out
+
+
+def ops_cost_phase(dev, smi: str) -> dict:
+    """Phase 4i.4: each kernel by CUDA events through its custom op
+    (torch.ops.heltondetection.*) and through its wrapper, in turns (op,
+    wrapper, wrapper, op), at the kernel table's shapes."""
+    import torch
+    from heltondetection_tpu_torch.kernels import iou as iou_kernel
+    from heltondetection_tpu_torch.kernels import nms as nms_kernel
+    ops = torch.ops.heltondetection
+    rng = np.random.default_rng(43)
+    b32 = torch.from_numpy(class_offset_boxes(rng, 32, 1024, 200)).to(dev)
+    b8 = torch.from_numpy(class_offset_boxes(rng, 8, 1024, 100)).to(dev)
+    a = torch.from_numpy(sorted_boxes(rng, 1, 1024)[0]).to(dev)
+    m = torch.from_numpy(sorted_boxes(rng, 1, 25200)[0]).to(dev)
+    cases = {
+        "nms_fixpoint B=32 N=1024": (ops.nms_fixpoint, nms_kernel.nms_fixpoint,
+                                     (b32, 0.65)),
+        "nms_mask B=32 N=1024": (ops.nms_mask, nms_kernel.nms_mask,
+                                 (b32, 0.65)),
+        "nms_mask B=8 N=1024": (ops.nms_mask, nms_kernel.nms_mask,
+                                (b8, 0.65)),
+        "iou_matrix 1024x25200": (ops.iou_matrix, iou_kernel.iou_matrix,
+                                  (a, m)),
+    }
+    out = {"card": smi}
+    for label, (op, wrapper, args) in cases.items():
+        if not torch.equal(op(*args), wrapper(*args)):
+            raise AssertionError(f"{label}: the op and the wrapper differ")
+        t = {"op": [], "wrapper": []}
+        for which in ("op", "wrapper", "wrapper", "op"):
+            fn = op if which == "op" else wrapper
+            t[which].append(cuda_ms(lambda fn=fn: fn(*args), 50))
+        log(f"op cost [{label}]: through the op {t['op']} ms, the wrapper "
+            f"{t['wrapper']} ms ({smi})")
+        out[label] = {"op_ms": t["op"], "wrapper_ms": t["wrapper"]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2734,10 +3169,7 @@ def main() -> int:
 
     # painted gt at 640²: AP > 0.99 through nms_mask, with and without a
     # letterbox inverse (a 1280x1248 source at scale 0.5, pad_x 8)
-    gts_lb = [(100.0, 120.0, 60.0, 80.0), (320.0, 300.0, 200.0, 150.0),
-              (500.0, 520.0, 24.0, 30.0), (200.0, 450.0, 300.0, 260.0),
-              (560.0, 90.0, 90.0, 60.0), (420.0, 600.0, 12.0, 16.0)]
-    gt_cls = [0, 17, 42, 79, 5, 63]
+    gts_lb, gt_cls = PAINTED_GTS, PAINTED_CLS
     raws = [torch.from_numpy(r).to(dev)
             for r in paint_raw_maps(gts_lb, gt_cls, 640, 80)]
     painted = Evaluator(lambda images: decode_full(raws, 80), 80,
@@ -2949,6 +3381,20 @@ def main() -> int:
     # falling, card against CPU, iou_matrix at the assigner's shape, times
     rcnn_train = rcnn_train_phase(dev, smi)
     log(f"[phase 4h done at {time.perf_counter() - t_start:.1f} s]")
+    # 4i. export on the card, run_test with its panels, the eval
+    # artifacts with the native matcher, the custom ops' cost
+    os.makedirs(RUNS_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=RUNS_DIR) as work:
+        export, rmodel = export_phase(dev, smi, model, work)
+        log(f"[phase 4i.1 done at {time.perf_counter() - t_start:.1f} s]")
+        tested = run_test_phase(dev, smi, model, rmodel, work)
+        del rmodel
+    log(f"[phase 4i.2 done at {time.perf_counter() - t_start:.1f} s]")
+    artifacts = artifacts_phase(dev, smi, model, routes["unfused"][0],
+                                batches, gt_eval)
+    log(f"[phase 4i.3 done at {time.perf_counter() - t_start:.1f} s]")
+    ops_cost = ops_cost_phase(dev, smi)
+    log(f"[phase 4i.4 done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -3157,6 +3603,9 @@ def main() -> int:
         "launches_train_eval": train["run_train"]["launches_nms_fixpoint"],
         "launches_train_eval_visdrone_1280":
             visdrone["run_train"]["launches"]["nms_fixpoint"],
+        "launches_run_test_yolov5":
+            tested["yolov5_s_coco_640"]["launches"]["nms_fixpoint"],
+        "op_ms_b32": ops_cost["nms_fixpoint B=32 N=1024"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
@@ -3182,6 +3631,19 @@ def main() -> int:
         "launches_rcnn_eval": rcnn["eval"]["launches"]["nms_mask"],
         "launches_rcnn_eval_per_batch":
             rcnn["eval"]["launches"]["nms_mask"] / rcnn["eval"]["batches"],
+        "launches_export_yolov5_per_call":
+            export["yolov5_s_coco_640"]["launches_per_call"],
+        "launches_export_rcnn_per_call":
+            export["faster_rcnn_pafpn_decoupled_coco_832"][
+                "launches_per_call"],
+        "launches_run_test_rcnn":
+            tested["faster_rcnn_pafpn_decoupled_coco_832"]["launches"][
+                "nms_mask"],
+        "launches_rcnn_class_score_panel":
+            tested["faster_rcnn_pafpn_decoupled_coco_832"][
+                "panel_launches"]["nms_mask"],
+        "op_ms_b32": ops_cost["nms_mask B=32 N=1024"],
+        "op_ms_b8": ops_cost["nms_mask B=8 N=1024"],
         "launches_rcnn_train": rcnn_train["run_train"]["launches"]["nms_mask"],
         "largest_n_checked": max(v["padded_n"] for v in
                                  rcnn["nms_mask_large_n"].values()),
@@ -3212,6 +3674,7 @@ def main() -> int:
         "launches": iou_counts["iou_matrix"],
         "launches_rcnn_train":
             rcnn_train["run_train"]["launches"]["iou_matrix"],
+        "op_ms": ops_cost["iou_matrix 1024x25200"],
         "max_abs_err": max(iou_err,
                            rcnn_train["iou_assigner"]["max_abs_err"]),
         "max_ulp": max(iou_ulp, rcnn_train["iou_assigner"]["max_ulp"]),
@@ -3264,6 +3727,9 @@ def main() -> int:
                                       "fused_route_n2401": c1}}))
     log(json.dumps({"rcnn": rcnn}))
     log(json.dumps({"rcnn_train": rcnn_train}))
+    log(json.dumps({"export_test_artifacts": {
+        "export": export, "run_test": tested, "artifacts": artifacts,
+        "ops_cost": ops_cost}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ per-level NMS and final NMS run the ``nms_mask`` kernel → RoIAlign or
 RoIPool → coupled or decoupled box head) through ``faster_rcnn_infer``,
 ``run_eval``, ``load_detector`` and ``BatchingDetector``, and its training
 (``faster_rcnn_loss``, whose assigners run the ``iou_matrix`` kernel, and
-``make_rcnn_train_step``) through ``run_train``.
+``make_rcnn_train_step``) through ``run_train``. For both families,
+``run_test`` with its heat-map panels, the eval artifacts (the COCO results
+JSON, the per-class table, the confusion matrix and curve PNGs, the FLOPs
+count, a C++ matcher) and ``engine.export`` (``torch.export`` to ``.pt2``:
+the kernels are ``torch.library`` custom ops, ``kernels/ops.py``, so a
+loaded program needs this package importable).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).

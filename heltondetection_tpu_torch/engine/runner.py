@@ -10,12 +10,14 @@ and the on-device augmentation (``train.device_aug``); for FasterRCNN its
 two-stage step with the backbone's frozen stages and
 ``train.backbone_pretrain`` (torchvision ResNet weights). ``run_eval``
 (single process; YOLOv5's fused route on kernel ``nms_fixpoint``, its
-unfused one and FasterRCNN's on ``nms_mask``), the eval forward and
-``load_detector`` for both families. Parts not ported raise
-``NotImplementedError`` naming their ROADMAP item: ``run_test`` (A9,
-A13), the eval artifacts and ``dump_json`` (A9), more than one device
-(A14), int8 (A15). The native C++ loader (A6) is not ported either: its
-configs train on the Python pipelines, and say so in the log.
+unfused one and FasterRCNN's on ``nms_mask``) with its artifacts (the COCO
+results JSON, the per-class table, the confusion matrix and curve PNGs,
+the FLOPs line), ``run_test`` (an image, a directory of images or a
+video, with the heat-map panels), the eval forward and ``load_detector``
+for both families. Parts not ported raise ``NotImplementedError`` naming
+their ROADMAP item: more than one device (A14), int8 (A15). The native
+C++ loader (A6) is not ported either: its configs train on the Python
+pipelines, and say so in the log.
 """
 
 from __future__ import annotations
@@ -247,6 +249,13 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
     that second route, single-label, as in the reference; its own NMS
     calls are ``nms_mask`` too.
 
+    ``dump_json``: also write the detections as a COCO results JSON
+    (pycocotools' ``loadRes`` format), labels mapped back to the dataset's
+    category ids. ``verbose`` logs the COCO summary, the per-class AP
+    table, the FLOPs and parameters of the forward, and renders the
+    confusion matrix, the PR curves and the P/R/F1 curves as PNGs into the
+    run's directory (``work_dir/name``) where matplotlib is installed.
+
     ``_reuse``: a dict owned by the caller (``run_train``'s in-loop eval)
     that keeps the parsed val set (``"ds"``, which the caller may also
     provide), the gt-registered ``DetEval`` (detections reset per call)
@@ -263,10 +272,7 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
     from heltondetection_tpu_torch.utils.cocoeval import (DetEval,
                                                           format_summary)
     dev = resolve_device(device)
-    if dump_json:
-        raise NotImplementedError(
-            "dump_json: the COCO results writer (cocoeval.to_coco_json) is "
-            "not ported yet (ROADMAP A9)")
+    get_logger()
     reuse = {} if _reuse is None else _reuse
     if getattr(cfg.eval, "int8", False):
         if _reuse is None:
@@ -321,12 +327,52 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
                     cfg.eval.batch_size,
                     num_workers=cfg.train.num_workers) as loader:
         stats = reuse["evaluator"].run(loader, det_eval=det, verbose=False)
+    if dump_json:
+        results = det.to_coco_json(getattr(ds, "label_to_cat", None))
+        with open(dump_json, "w") as f:
+            json.dump(results, f)
+        _log.info("wrote %d detections (COCO results format) to %s",
+                  len(results), dump_json)
     if verbose:
         _log.info("eval results for %s:\n%s", cfg.name, format_summary(stats))
-        _once(reuse, "artifacts_note", "the per-class table, confusion "
-              "matrix, PR curves and FLOPs count come with the next slice "
-              "(ROADMAP A9)")
+        _eval_artifacts(cfg, ds, det, model)
     return stats
+
+
+def _eval_artifacts(cfg: ExperimentConfig, ds, det, model: Model) -> None:
+    """The verbose eval's artifacts: the per-class AP table, the confusion
+    matrix (conf 0.25, IoU 0.45), PR and P/R/F1 curve PNGs in the run's
+    directory (where matplotlib is installed), the mean-F1 peak, and the
+    forward's FLOPs and parameters, counted on a weightless copy of
+    ``model`` on the meta device."""
+    from heltondetection_tpu_torch.utils.cocoeval import (
+        format_classwise, save_confusion_png, save_pr_curves_png,
+        save_prf_curves_png)
+    from heltondetection_tpu_torch.utils.flops import model_complexity
+    names = getattr(ds, "class_names", None) or cfg.data.class_names
+    _log.info("per-class AP (mmdet classwise table):\n%s",
+              format_classwise(det.per_class_ap(), names))
+    art_dir = os.path.join(cfg.work_dir, cfg.name)
+    os.makedirs(art_dir, exist_ok=True)
+    cm_path = os.path.join(art_dir, "confusion_matrix.png")
+    pr_path = os.path.join(art_dir, "pr_curve.png")
+    prf_path = os.path.join(art_dir, "prf_curve.png")
+    try:
+        save_confusion_png(det.confusion_matrix(), names, cm_path)
+        save_pr_curves_png(det, names, pr_path)
+        best_conf, best_f1 = save_prf_curves_png(det, names, prf_path)
+    except (ImportError, ValueError) as e:   # matplotlib is optional
+        _log.info("eval artifact rendering unavailable: %s", e)
+    else:
+        _log.info("eval artifacts: confusion matrix (conf 0.25, IoU 0.45) "
+                  "→ %s; PR curves @0.5 → %s; P/R/F1 vs conf → %s",
+                  cm_path, pr_path, prf_path)
+        _log.info("mean-F1 peak %.3f at conf %.3f — the suggested "
+                  "test.conf_thres for this model", best_f1, best_conf)
+    comp = model_complexity(_net_like(model, torch.device("meta")),
+                            cfg.model.img_size)
+    _log.info("FLOPs: %.2f G/img  Params: %.2f M", comp["gflops_per_image"],
+              comp["mparams"])
 
 
 def _check_train_config(cfg: ExperimentConfig) -> None:
@@ -742,3 +788,102 @@ def _make_detector(cfg, model: Model, nc: int, *, device=None,
                                    device=dev)
     return Detector(detect_fn, nc, cfg.model.img_size, forward_fn=fwd,
                     device=dev, **kw)
+
+
+def run_test(cfg: ExperimentConfig, source: str,
+             out_path: Optional[str] = None, *, device=None) -> Dict:
+    """``--mode test``: detection on an image, a directory of images or a
+    video, on ``device`` (CUDA unless ``device="cpu"``), through the
+    Detector of :func:`load_detector` (the config's test knobs, TTA
+    included; for YOLOv5 the packed serve step on kernel ``nms_fixpoint``,
+    for FasterRCNN ``faster_rcnn_infer`` on ``nms_mask``).
+
+    An image returns its dets (``boxes``, ``scores``, ``classes`` in source
+    pixels) and, with ``out_path``, writes the rendered frame there (needs
+    OpenCV); with ``test.save_heatmaps`` and ``out_path`` also the panels
+    of :func:`_save_heatmap_panels` (``"heatmaps"`` names the first). A
+    directory writes each image's rendering (and panels) into ``out_path``
+    or ``work_dir/name/test_out``; a video (.mp4, .avi, .mov, .mkv) its
+    rendering into ``out_path`` or ``out.mp4``."""
+    from heltondetection_tpu_torch.data.readers import IMG_EXTS
+    dev = resolve_device(device)
+    names = cfg.data.class_names
+    nc = _config_num_classes(cfg)
+    model = build_model(cfg.model, nc)
+    model.load_state_dict(_load_eval_variables(cfg))
+    det = _make_detector(cfg, model, nc, device=dev)
+    if os.path.isdir(source):
+        files = sorted(f for f in os.listdir(source)
+                       if os.path.splitext(f)[1].lower() in IMG_EXTS)
+        out_dir = out_path or os.path.join(cfg.work_dir, cfg.name, "test_out")
+        os.makedirs(out_dir, exist_ok=True)
+        for f in files:
+            src_f, out_f = os.path.join(source, f), os.path.join(out_dir, f)
+            det.infer_image_file(src_f, out_f, names)
+            if cfg.test.save_heatmaps:
+                _save_heatmap_panels(cfg, model, src_f, out_f, device=dev)
+        return {"images": len(files), "out_dir": out_dir}
+    if os.path.splitext(source)[1].lower() in (".mp4", ".avi", ".mov",
+                                               ".mkv"):
+        return {"frames": det.infer_video_file(source, out_path or "out.mp4",
+                                               names)}
+    result = det.infer_image_file(source, out_path, names)
+    if cfg.test.save_heatmaps and out_path:
+        result["heatmaps"] = _save_heatmap_panels(cfg, model, source,
+                                                  out_path, device=dev)
+    return result
+
+
+def _save_heatmap_panels(cfg: ExperimentConfig, model: Model, source: str,
+                         out_path: str, *, device=None) -> str:
+    """Write the per-level panels of one image beside ``out_path`` (its
+    stem + ``_heatmaps.png``, ``_objmaps.png`` and, for FasterRCNN,
+    ``_clsmaps.png``), each level a panel of the letterboxed image's size:
+    YOLOv5's raw head maps' mean activation and best-anchor objectness;
+    FasterRCNN's pyramid activations, RPN objectness, and the box head's
+    best class score over ``generate_proposals``' proposals (its NMS on
+    kernel ``nms_mask`` on CUDA). Written by ``utils/vis.py:write_png``,
+    no OpenCV needed. Returns the heat-map panel's path."""
+    from heltondetection_tpu_torch.data import readers
+    from heltondetection_tpu_torch.data.letterbox import letterbox_np
+    from heltondetection_tpu_torch.utils.vis import (feature_heatmaps,
+                                                     objectness_maps,
+                                                     rcnn_class_score_maps,
+                                                     rpn_objectness_maps,
+                                                     write_png)
+    dev = resolve_device(device)
+    lb, _, _ = letterbox_np(readers.imread_rgb(source),
+                            np.zeros((0, 4), np.float32), cfg.model.img_size)
+    net = model.to(dev).eval()
+    x = torch.from_numpy(lb).to(dev)[None].float() / 255.0
+    stem = os.path.splitext(out_path)[0]
+
+    def host(t):
+        return t.float().cpu().numpy()
+
+    with torch.inference_mode():
+        if isinstance(net, YOLOv5):
+            raws0 = [host(r[0]) for r in net(x)]
+            hm = feature_heatmaps(lb, raws0)
+            om = objectness_maps(lb, raws0, net.num_classes,
+                                 net.num_anchors)
+        else:
+            from heltondetection_tpu_torch.models.faster_rcnn import (
+                STRIDES, generate_proposals, pyramid_anchors)
+            pyr, obj, deltas = net(x)
+            pyr0 = [host(p[0].permute(1, 2, 0)) for p in pyr]
+            level_hw = [p.shape[:2] for p in pyr0]
+            hm = feature_heatmaps(lb, pyr0)
+            om = rpn_objectness_maps(lb, level_hw, host(obj[0]))
+            props, _, pvalid = generate_proposals(
+                obj, deltas, net.anchors(dev),
+                pyramid_anchors(cfg.model.img_size)[1], cfg.model.img_size,
+                net.cfg)
+            scores, _ = net.run_box_head(pyr, props)
+            probs = torch.softmax(scores[0].float(), -1)[:, 1:]
+            write_png(stem + "_clsmaps.png", rcnn_class_score_maps(
+                lb, level_hw, STRIDES, host(props[0]), host(probs),
+                host(pvalid[0]), num_pooled=net.cfg.roi_levels))
+    write_png(stem + "_heatmaps.png", hm)
+    write_png(stem + "_objmaps.png", om)
+    return stem + "_heatmaps.png"

@@ -192,6 +192,32 @@ def packed_copy(model: YOLOv5) -> YOLOv5:
     return packed.eval()
 
 
+def decode_predictions(raw: Sequence[torch.Tensor], num_classes: int,
+                       anchors=YOLOV5_ANCHORS, strides=YOLOV5_STRIDES,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raw maps → (boxes (B, N, 4) xyxy, scores (B, N), classes (B, N)
+    int32): each anchor's best class by obj·cls (first on ties), flat in
+    (level, y, x, a) order. :func:`decode_full` keeps every class's score
+    instead."""
+    boxes, scores, classes = [], [], []
+    for lvl, p in enumerate(raw):
+        b, h, w, _ = p.shape
+        a = len(anchors[lvl])
+        p = p.float().reshape(b, h, w, a, 5 + num_classes)
+        grid = yolo_grid(h, w, p.device)[None, :, :, None, :]
+        anc = torch.tensor(anchors[lvl], dtype=torch.float32,
+                           device=p.device)[None, None, None]
+        xy = (torch.sigmoid(p[..., 0:2]) * 2.0 - 0.5 + grid) * strides[lvl]
+        wh = (torch.sigmoid(p[..., 2:4]) * 2.0) ** 2 * anc
+        conf = torch.sigmoid(p[..., 4])[..., None] * torch.sigmoid(p[..., 5:])
+        box = torch.cat([xy - wh * 0.5, xy + wh * 0.5], dim=-1)
+        boxes.append(box.reshape(b, -1, 4))
+        scores.append(conf.amax(-1).reshape(b, -1))
+        classes.append(torch.argmax(conf, dim=-1).reshape(b, -1))
+    return (torch.cat(boxes, 1), torch.cat(scores, 1),
+            torch.cat(classes, 1).to(torch.int32))
+
+
 def decode_full(raw: Sequence[torch.Tensor], num_classes: int,
                 anchors=YOLOV5_ANCHORS, strides=YOLOV5_STRIDES,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

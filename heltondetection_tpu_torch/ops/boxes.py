@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from heltondetection_tpu_torch.kernels import iou as iou_kernel
+from heltondetection_tpu_torch.kernels import ops as kernel_ops
 
 EPS = 1e-7
 
@@ -169,9 +169,8 @@ def decode_deltas(anchors: torch.Tensor, deltas: torch.Tensor,
 
 def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU (N, M) f32 of xyxy boxes (N, 4) × (M, 4), any N and M.
-    On CUDA tensors this launches the ``iou_matrix`` kernel; on CPU
-    tensors it runs the plain :func:`box_iou_matrix`."""
-    if boxes1.device.type == "cpu" and boxes2.device.type == "cpu":
-        return box_iou_matrix(boxes1.float(), boxes2.float())
-    return iou_kernel.iou_matrix(boxes1.float().contiguous(),
+    Through the custom op ``heltondetection::iou_matrix``: on CUDA tensors
+    it launches the ``iou_matrix`` kernel, on CPU tensors it runs the plain
+    :func:`box_iou_matrix`."""
+    return kernel_ops.iou_matrix(boxes1.float().contiguous(),
                                  boxes2.float().contiguous())

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from heltondetection_tpu_torch.kernels import nms as nms_kernel
+from heltondetection_tpu_torch.kernels import ops as kernel_ops
 
 _MAX_WH = 8192.0  # class-offset stride; > any supported input size
 
@@ -114,10 +115,11 @@ def nms_mask_fixpoint_batched(boxes: torch.Tensor,
     tensor this launches the ``nms_fixpoint`` kernel (N padded to a
     multiple of 32 with inert zero rows) up to its shared-memory limit
     (2400 on an H100), and the ``nms_mask`` kernel above it
-    (:func:`fixpoint_route`); on a CPU tensor it runs the plain
-    :func:`nms_mask_fixpoint`."""
+    (:func:`fixpoint_route`); on a CPU tensor the op runs the plain
+    :func:`nms_mask_fixpoint`. Both through the custom ops of
+    ``kernels/ops.py``; the padding and the route stay here."""
     if boxes.device.type == "cpu":
-        return nms_mask_fixpoint(boxes, iou_thres)
+        return kernel_ops.nms_fixpoint(boxes, iou_thres)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS for device {boxes.device}")
     n = boxes.shape[1]
@@ -127,22 +129,23 @@ def nms_mask_fixpoint_batched(boxes: torch.Tensor,
         return nms_mask_batched(boxes, iou_thres)
     pad = (-n) % 32
     nb = F.pad(boxes.float(), (0, 0, 0, pad)).contiguous()
-    return nms_kernel.nms_fixpoint(nb, iou_thres)[:, :n]
+    return kernel_ops.nms_fixpoint(nb, iou_thres)[:, :n]
 
 
 def nms_mask_batched(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Keep mask (B, N) bool of score-sorted boxes (B, N, 4). On a CUDA
     tensor this launches the ``nms_mask`` kernel (N padded to a multiple of
-    64 with inert zero rows); on a CPU tensor it runs the plain
-    :func:`nms_mask_seq`."""
+    64 with inert zero rows); on a CPU tensor the op runs the plain
+    :func:`nms_mask_seq`. Both through the custom op
+    ``heltondetection::nms_mask``."""
     if boxes.device.type == "cpu":
-        return nms_mask_seq(boxes, iou_thres)
+        return kernel_ops.nms_mask(boxes, iou_thres)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS for device {boxes.device}")
     n = boxes.shape[1]
     pad = (-n) % 64
     nb = F.pad(boxes.float(), (0, 0, 0, pad)).contiguous()
-    return nms_kernel.nms_mask(nb, iou_thres)[:, :n]
+    return kernel_ops.nms_mask(nb, iou_thres)[:, :n]
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,

@@ -2,9 +2,12 @@
 heltondetection_tpu/ops/postprocess.py.
 
 1. rank anchors by σ(obj) alone (Ultralytics v6.1's own candidate
-   pre-filter is objectness-thresholded) and keep the top ``topk``;
-2. gather one CP-wide bf16 row of class and box logits for each and run the
-   v6.1 decode on those rows only;
+   pre-filter is objectness-thresholded), or over the standard head
+   (:func:`fused_select_decode`) by the best class's confidence
+   σ(obj)·σ(max cls), and keep the top ``topk``;
+2. gather one CP-wide bf16 row of class and box logits for each (the
+   standard head's rows are 5+C wide) and run the v6.1 decode on those
+   rows only;
 3. keep each candidate's top ``max_cls_per_box`` classes, ranked in bf16
    with σ taken in float32, and take a flat top-k over the (box, class)
    pairs;
@@ -13,9 +16,8 @@ heltondetection_tpu/ops/postprocess.py.
 
 Every top-k here is exact, a stable descending sort, so equal values come
 out lower index first, as ``jax.lax.top_k`` orders them; the reference's
-``approx`` knob (``lax.approx_max_k``) has no counterpart. The unfused
-``fused_select_decode`` over the standard head comes with the evaluator
-slice.
+``approx`` knob (``lax.approx_max_k``) has no counterpart.
+:func:`make_fused_postprocess` takes either head's outputs.
 """
 
 from __future__ import annotations
@@ -109,6 +111,55 @@ def _expand_pairs(boxes: torch.Tensor, obj: torch.Tensor,
         top_s = F.pad(top_s, (0, pad))
         out_c = F.pad(out_c, (0, pad), value=-1)
     return out_b, top_s, out_c
+
+
+def fused_select_decode(raw, num_classes: int, *, topk: int = 1024,
+                        conf_thres: float = 0.001, max_cls_per_box: int = 4,
+                        anchors=YOLOV5_ANCHORS, strides=YOLOV5_STRIDES,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raw head maps → top-k multi-label candidates, decoded.
+
+    ``raw``: per level (B, H, W, A·(5+C)), ``decode_full``'s input, flat in
+    (level, y, x, a) row order. Returns boxes (B, topk, 4) xyxy pixels
+    f32, scores (B, topk) f32 DESC-sorted, classes (B, topk) int32 (−1 on
+    sub-threshold padding rows).
+    """
+    c = num_classes
+    b = raw[0].shape[0]
+    img_hw = (raw[0].shape[1] * strides[0], raw[0].shape[2] * strides[0])
+
+    # pass 1: each anchor's best-class confidence, per level
+    best_parts, flat_parts = [], []
+    for lvl, p in enumerate(raw):
+        _, h, w, _ = p.shape
+        p5 = p.reshape(b, h * w * len(anchors[lvl]), 5 + c)
+        m = p5[..., 5:].amax(-1)                           # (B, HWA) logits
+        best_parts.append(torch.sigmoid(p5[..., 4].float()) *
+                          torch.sigmoid(m.float()))
+        flat_parts.append(p5.to(torch.bfloat16))
+    best = torch.cat(best_parts, dim=1)                    # (B, N)
+    flat = torch.cat(flat_parts, dim=1)                    # (B, N, 5+C) bf16
+
+    # pass 2: the top-k anchors by best-class confidence
+    k1 = min(topk, best.shape[1])
+    _, box_i = _topk(best, k1)
+
+    # pass 3: gather and decode the selected rows only
+    rows = torch.gather(flat, 1, box_i[..., None].expand(-1, -1, 5 + c)
+                        ).float()                          # (B, k1, 5+C)
+    gxy, awh, st = _decode_tables_on(img_hw, anchors, strides, "yxa",
+                                     best.device)
+    g = gxy[box_i]
+    aw = awh[box_i]
+    s_ = st[box_i][..., None]
+    xy = (torch.sigmoid(rows[..., 0:2]) * 2.0 - 0.5 + g) * s_
+    wh = (torch.sigmoid(rows[..., 2:4]) * 2.0) ** 2 * aw
+    boxes = torch.cat([xy - wh * 0.5, xy + wh * 0.5], -1)
+
+    # pass 4: the classes of each row and a flat top-k over the pairs
+    return _expand_pairs(boxes, torch.sigmoid(rows[..., 4]), rows[..., 5:],
+                         num_classes=c, topk=topk, conf_thres=conf_thres,
+                         max_cls_per_box=max_cls_per_box)
 
 
 def fused_select_decode_packed(packed, num_classes: int, *, topk: int = 1024,
@@ -206,12 +257,16 @@ def make_fused_postprocess(num_classes: int, *, conf_thres: float = 0.001,
                            max_det: int | None = 300,
                            max_cls_per_box: int = 4,
                            anchors=YOLOV5_ANCHORS, strides=YOLOV5_STRIDES):
-    """The batch postprocess over PACKED head outputs: per-level
-    ``(pobj, [pcand_a], (h, w))`` → dets (B, max_det, …)."""
+    """The batch postprocess over head outputs → dets (B, max_det, …):
+    the packed head's per-level ``(pobj, [pcand_a], (h, w))`` through
+    :func:`fused_select_decode_packed`, the standard head's raw maps
+    through :func:`fused_select_decode`."""
 
-    def post(packed):
-        cb, cs, cc = fused_select_decode_packed(
-            packed, num_classes, topk=pre_nms_topk, conf_thres=conf_thres,
+    def post(raw):
+        packed = isinstance(raw[0], (tuple, list))
+        select = fused_select_decode_packed if packed else fused_select_decode
+        cb, cs, cc = select(
+            raw, num_classes, topk=pre_nms_topk, conf_thres=conf_thres,
             max_cls_per_box=max_cls_per_box, anchors=anchors,
             strides=strides)
         return nms_sorted_candidates(cb, cs, cc, iou_thres=iou_thres,

@@ -5,17 +5,21 @@ The same IoU thresholds (.5:.05:.95), 101-point interpolated precision,
 area ranges, maxDets, crowd handling (IoU against a crowd gt is the
 intersection over the det's area), ignore propagation and stable score
 sorting. Host-side numpy: the device hands over fixed-shape det arrays and
-this consumes them.
+this consumes them. The greedy matching of each (image, category, area
+range) runs in C++ (``native/cocoeval_core.cpp``) where g++ built it, else
+in numpy; both give the same answers.
 
-The greedy matcher is the numpy one. The reference's C++ matcher, the
-per-class table, the confusion matrix, the P/R/F1 curves, the COCO JSON
-export and the PNG savers are not ported yet (ROADMAP A9).
+Beside the COCO stats: the per-class AP table (:meth:`DetEval.per_class_ap`,
+:func:`format_classwise`), the confusion matrix, precision, recall and F1
+against the confidence threshold, the COCO results JSON
+(:meth:`DetEval.to_coco_json`) and three PNG renderings, which need
+matplotlib (imported where it is used, so it stays optional).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -65,7 +69,11 @@ class DetEval:
     _gts: Dict = field(default_factory=dict)       # (img, cat) -> list
     _dts: Dict = field(default_factory=dict)
     _cat_ids: set = field(default_factory=set)
+    _img_ids: set = field(default_factory=set)
     _prep_cache: Dict = field(default_factory=dict)  # see _prep_img_cat
+    # (precision, recall, cats) of the gts and dets as they are; every
+    # add_gt, add_det and reset_dets drops it
+    _acc: Optional[Tuple] = None
 
     def _iou_index(self, iou: float) -> int:
         """Index of ``iou`` in ``iou_thrs``; a threshold off the grid
@@ -88,7 +96,8 @@ class DetEval:
                  else np.asarray(areas, np.float64))
         ignore = (np.zeros(n, np.int64) if ignore is None
                   else np.asarray(ignore, np.int64))
-        self._prep_cache.clear()
+        self._changed()
+        self._img_ids.add(img_id)
         for i in range(n):
             key = (img_id, int(classes[i]))
             self._gts.setdefault(key, []).append(
@@ -100,18 +109,23 @@ class DetEval:
         """Clear the detections and keep the ground truth, so a new set of
         detections can be scored against the same gts."""
         self._dts.clear()
-        self._prep_cache.clear()
+        self._changed()
 
     def add_det(self, img_id, boxes_xywh, scores, classes):
         boxes_xywh = np.asarray(boxes_xywh, np.float64).reshape(-1, 4)
         scores = np.asarray(scores, np.float64).reshape(-1)
         classes = np.asarray(classes, np.int64).reshape(-1)
-        self._prep_cache.clear()
+        self._changed()
+        self._img_ids.add(img_id)
         for i in range(len(scores)):
             key = (img_id, int(classes[i]))
             self._dts.setdefault(key, []).append((boxes_xywh[i],
                                                   float(scores[i])))
             self._cat_ids.add(int(classes[i]))
+
+    def _changed(self):
+        self._prep_cache.clear()
+        self._acc = None
 
     # -- core ----------------------------------------------------------------
 
@@ -166,6 +180,12 @@ class DetEval:
         ious = ious[:, gt_order]
 
         G, D = len(g_ig), len(d_scores)
+        if G and D:
+            from heltondetection_tpu_torch.native import match_dets_native
+            native = match_dets_native(self.iou_thrs, ious, g_ig, g_crowd)
+            if native is not None:
+                return self._finish_eval(*native, d_boxes, d_scores, g_ig,
+                                         area_rng)
         dtm = np.zeros((T, D), np.int64) - 1
         dt_ig = np.zeros((T, D), np.int64)
         nonig = g_ig == 0
@@ -259,13 +279,146 @@ class DetEval:
                         q[ok] = pr[inds[ok]]
                         precision[t, :, k, a, m] = q
         self._prep_cache.clear()   # free the per-(img, cat) IoU cache
+        self._acc = (precision, recall, cats)
         return precision, recall
 
+    def _accumulated(self) -> Tuple[np.ndarray, np.ndarray, list]:
+        """(precision, recall, cats) of the gts and dets as they are now:
+        :meth:`accumulate` unless nothing changed since its last call."""
+        if self._acc is None:
+            self.accumulate()
+        return self._acc
+
+    def per_class_ap(self) -> Dict[int, Dict[str, float]]:
+        """Per-category AP and AP50 @[all | maxDets=100], the mmdet
+        ``classwise`` table; a category with no gt anywhere stays -1, as in
+        pycocotools' masked means."""
+        p, _, cats = self._accumulated()
+        a = list(AREA_RNG.keys()).index("all")
+        m = MAX_DETS.index(100)
+        t50 = self._iou_index(0.5)
+        out: Dict[int, Dict[str, float]] = {}
+        for k, cat in enumerate(cats):
+            s = p[:, :, k, a, m]
+            v = s[s > -1]
+            s50 = s[t50][s[t50] > -1]
+            out[int(cat)] = {
+                "AP": float(np.mean(v)) if v.size else -1.0,
+                "AP50": float(np.mean(s50)) if s50.size else -1.0,
+            }
+        return out
+
+    def confusion_matrix(self, conf_thres: float = 0.25,
+                         iou_thres: float = 0.45) -> np.ndarray:
+        """(nc+1, nc+1) confusion matrix of the dets and gts, Ultralytics'
+        val-time matrix (row: predicted class, column: true class, last
+        index: background). Dets at or above ``conf_thres`` match gts at
+        IoU ≥ ``iou_thres`` greedily in score order; an unmatched gt counts
+        in the background row, an unmatched det in the background column.
+        Crowd and ignored gts take part in the matching, but a det they
+        absorb counts nowhere and they are never used up."""
+        nc = self.num_classes
+        mat = np.zeros((nc + 1, nc + 1), np.int64)
+        per_g: Dict = {}
+        per_d: Dict = {}
+        for (img, cat), gts in self._gts.items():
+            for box, crowd, _area, ig in gts:
+                per_g.setdefault(img, []).append((box, cat, crowd or ig))
+        for (img, cat), dts in self._dts.items():
+            for box, score in dts:
+                if score >= conf_thres:
+                    per_d.setdefault(img, []).append((box, cat, score))
+        for img in set(per_g) | set(per_d):
+            gts = per_g.get(img, [])
+            dts = sorted(per_d.get(img, []), key=lambda d: -d[2])
+            g_boxes = np.array([g[0] for g in gts]).reshape(-1, 4)
+            g_ig = np.array([g[2] for g in gts], bool).reshape(-1)
+            d_boxes = np.array([d[0] for d in dts]).reshape(-1, 4)
+            ious = _iou_xywh(d_boxes, g_boxes, g_ig.astype(np.int64))
+            taken = np.zeros(len(gts), bool)
+            for di, (_box, dc, _s) in enumerate(dts):
+                if len(gts):
+                    ok = ious[di] >= iou_thres
+                    # a real gt first: an ignored one never takes a match
+                    # from a real gt in the same spot
+                    cand = np.where(ok & ~taken & ~g_ig)[0]
+                    if cand.size:
+                        gi = int(cand[np.argmax(ious[di][cand])])
+                        taken[gi] = True
+                        mat[dc, gts[gi][1]] += 1
+                        continue
+                    if (ok & g_ig).any():
+                        continue    # absorbed by a crowd or ignored region
+                mat[dc, nc] += 1          # FP: background column
+            for gi, (_box, gc, ig) in enumerate(gts):
+                if not taken[gi] and not ig:
+                    mat[nc, gc] += 1      # FN: background row
+        return mat
+
+    def prf_at_conf(self, conf_grid: Optional[np.ndarray] = None,
+                    iou: float = 0.5) -> Dict[int, Dict[str, np.ndarray]]:
+        """Precision, recall and F1 against the confidence threshold at one
+        IoU (default 0.5), the data of Ultralytics' P, R and F1 curves:
+        ``{cat: {"conf", "P", "R", "F1"}}`` from the COCO matching of
+        :meth:`accumulate` (ignored dets count as neither TP nor FP, recall
+        is over the non-ignored gts)."""
+        if conf_grid is None:
+            conf_grid = np.linspace(0.0, 1.0, 101)
+        t = self._iou_index(iou)
+        area = AREA_RNG["all"]
+        max_det = MAX_DETS[-1]
+        cats = (sorted(self._cat_ids) if self._cat_ids
+                else list(range(self.num_classes)))
+        imgs = sorted(self._img_ids, key=str)
+        out: Dict[int, Dict[str, np.ndarray]] = {}
+        for cat in cats:
+            scores, tp, ng = [], [], 0
+            for img in imgs:
+                e = self._evaluate_img(img, cat, area, max_det)
+                if e is None:
+                    continue
+                keep = ~e["dt_ignore"][t]
+                scores.append(e["dt_scores"][keep])
+                tp.append(e["dt_matched"][t][keep])
+                ng += e["num_gt"]
+            if not scores:
+                continue
+            s = np.concatenate(scores)
+            f = np.concatenate(tp)
+            order = np.argsort(-s, kind="mergesort")
+            s, f = s[order], f[order]
+            # dets with score >= c: -s ascends, and s_i >= c ⇔ -s_i <= -c
+            n_at = np.searchsorted(-s, -conf_grid, side="right")
+            tp_at = np.concatenate([[0], np.cumsum(f)])[n_at]
+            P = np.where(n_at > 0, tp_at / np.maximum(n_at, 1), 1.0)
+            R = tp_at / max(ng, 1) if ng else np.zeros_like(P)
+            F1 = np.where(P + R > 0, 2 * P * R / np.maximum(P + R, 1e-12),
+                          0.0)
+            out[int(cat)] = {"conf": conf_grid, "P": P, "R": R, "F1": F1}
+        self._prep_cache.clear()   # free the per-(img, cat) IoU cache
+        return out
+
+    def to_coco_json(self, label_to_cat: Optional[Dict[int, int]] = None
+                     ) -> List[Dict]:
+        """The detections as a COCO results list (``[{image_id,
+        category_id, bbox xywh, score}]``, pycocotools' ``loadRes``
+        format). ``label_to_cat`` maps the contiguous labels back to the
+        dataset's category ids (``COCODataset.label_to_cat``); identity
+        when omitted."""
+        out: List[Dict] = []
+        for (img_id, cat), dets in self._dts.items():
+            cat_id = label_to_cat[cat] if label_to_cat else cat
+            for box, score in dets:
+                out.append({"image_id": img_id, "category_id": int(cat_id),
+                            "bbox": [round(float(v), 3) for v in box],
+                            "score": round(float(score), 5)})
+        return out
+
     def summarize(self) -> Dict[str, float]:
-        """COCO stats of the gts and dets added so far. It accumulates on
-        every call: the reference reuses the first call's result after
-        ``reset_dets`` or ``add_det``, and so reports stale stats."""
-        p, r = self.accumulate()
+        """COCO stats of the gts and dets added so far. It accumulates anew
+        after any change: the reference reuses its first ``accumulate``
+        after ``reset_dets`` or ``add_det``, and so reports stale stats."""
+        p, r, _ = self._accumulated()
         area_names = list(AREA_RNG.keys())
 
         def ap(iou_thr=None, area="all", max_det=100):
@@ -317,3 +470,175 @@ def format_summary(stats: Dict[str, float]) -> str:
         ("Average Recall     (AR) @[ IoU=0.50:0.95 | area= large | maxDets=100 ]", "AR_large"),
     ]
     return "\n".join(f" {name} = {stats[key]:0.3f}" for name, key in rows)
+
+
+def format_classwise(per_class: Dict[int, Dict[str, float]],
+                     class_names: Optional[Sequence[str]] = None) -> str:
+    """:meth:`DetEval.per_class_ap` as the mmdet classwise table (category
+    | AP | AP50, three across)."""
+    cells = []
+    for cat, v in sorted(per_class.items()):
+        name = class_names[cat] if class_names and cat < len(class_names) \
+            else str(cat)
+        cells.append(f"{name[:18]:<18} {v['AP']*100:6.2f} "
+                     f"{v['AP50']*100:6.2f}")
+    header = f"{'category':<18} {'AP':>6} {'AP50':>6}"
+    ncol = 3
+    lines = [" | ".join([header] * min(ncol, max(len(cells), 1)))]
+    for i in range(0, len(cells), ncol):
+        lines.append(" | ".join(cells[i:i + ncol]))
+    return "\n".join(lines)
+
+
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend; raises ImportError where
+    matplotlib is not installed (the renderings are optional)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def save_confusion_png(mat: np.ndarray,
+                       class_names: Optional[Sequence[str]],
+                       path: str, normalize: bool = True) -> None:
+    """:meth:`DetEval.confusion_matrix` as Ultralytics' heat-map PNG, each
+    true-class column normalized to sum to 1."""
+    plt = _pyplot()
+    n = mat.shape[0]
+    cls_names = (list(class_names) if class_names else
+                 [str(i) for i in range(n - 1)])
+    # the last row and column are background, whatever names were passed
+    names = cls_names[:n - 1] + [str(i) for i in
+                                 range(len(cls_names), n - 1)] + ["background"]
+    m = mat.astype(np.float64)
+    if normalize:
+        m = m / np.maximum(m.sum(0, keepdims=True), 1e-9)
+    fig, ax = plt.subplots(figsize=(max(6, n * 0.35),) * 2, dpi=120)
+    im = ax.imshow(m, cmap="Blues", vmin=0.0)
+    ax.set_xticks(range(n), names, rotation=90, fontsize=7)
+    ax.set_yticks(range(n), names, fontsize=7)
+    ax.set_xlabel("True")
+    ax.set_ylabel("Predicted")
+    if n <= 30:   # cell labels only where they are readable
+        for i in range(n):
+            for j in range(n):
+                if mat[i, j]:
+                    ax.text(j, i, f"{m[i, j]:.2f}" if normalize
+                            else str(mat[i, j]), ha="center", va="center",
+                            fontsize=6,
+                            color="white" if m[i, j] > 0.5 else "black")
+    fig.colorbar(im, ax=ax, fraction=0.046)
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+# a fixed categorical palette, in order; hues follow class identity
+_SERIES = ("#2a78d6", "#eb6834", "#1baf7a", "#eda100",
+           "#e87ba4", "#008300", "#4a3aa7", "#e34948")
+
+
+def save_pr_curves_png(det: DetEval, class_names: Optional[Sequence[str]],
+                       path: str) -> None:
+    """Per-class precision-recall curves @IoU 0.5 (area all, maxDets 100),
+    Ultralytics' PR_curve.png. Up to 8 classes get a coloured line each
+    (the palette in order, with a legend); beyond that every class is a
+    thin grey line and only the bold mean curve is drawn in ink."""
+    plt = _pyplot()
+    precision, _, cats = det._accumulated()
+    a = list(AREA_RNG.keys()).index("all")
+    m = MAX_DETS.index(100)
+    p = precision[det._iou_index(0.5), :, :, a, m]          # (R, K)
+    names = list(class_names) if class_names else [str(c) for c in cats]
+    fig, ax = plt.subplots(figsize=(7, 5), dpi=120)
+    fig.patch.set_facecolor("#fcfcfb")
+    ax.set_facecolor("#fcfcfb")
+    present = [k for k in range(len(cats)) if (p[:, k] > -1).any()]
+    small = len(present) <= len(_SERIES)
+    for i, k in enumerate(present):
+        y = np.where(p[:, k] > -1, p[:, k], 0.0)
+        ap = float(np.mean(p[:, k][p[:, k] > -1]))
+        cat = cats[k]
+        label = names[cat] if cat < len(names) else str(cat)
+        if small:
+            ax.plot(REC_THRS, y, color=_SERIES[i], linewidth=2,
+                    label=f"{label} {ap:.3f}")
+        else:
+            ax.plot(REC_THRS, y, color="#c9c8c2", linewidth=0.8)
+    if present:
+        valid = p[:, present]
+        mean = np.where(valid > -1, valid, 0.0).mean(1)
+        map50 = float(np.mean([np.mean(p[:, k][p[:, k] > -1])
+                               for k in present]))
+        ax.plot(REC_THRS, mean, color="#0b0b0b", linewidth=2.5,
+                label=f"all classes {map50:.3f} mAP@0.5")
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1.02)
+    ax.set_xlabel("Recall", color="#0b0b0b")
+    ax.set_ylabel("Precision", color="#0b0b0b")
+    ax.set_title("Precision-Recall @ IoU 0.5", color="#0b0b0b")
+    ax.grid(True, color="#e8e7e3", linewidth=0.6)
+    for sp in ax.spines.values():
+        sp.set_color("#c9c8c2")
+    ax.tick_params(colors="#52514e")
+    ax.legend(loc="lower left", fontsize=7, frameon=False)
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def save_prf_curves_png(det: DetEval, class_names: Optional[Sequence[str]],
+                        path: str) -> Tuple[float, float]:
+    """Precision, recall and F1 against the confidence @IoU 0.5, three
+    stacked panels (Ultralytics' P, R and F1 curves in one figure), with
+    :func:`save_pr_curves_png`'s colours and the mean F1's peak labelled.
+    Returns ``(best_conf, best_f1)``: the confidence where the mean F1
+    peaks, a suggestion for ``test.conf_thres``."""
+    plt = _pyplot()
+    curves = det.prf_at_conf()
+    cats = sorted(curves)
+    if not cats:
+        raise ValueError("no category has a gt or a det to plot")
+    names = list(class_names) if class_names else [str(c) for c in cats]
+    small = len(cats) <= len(_SERIES)
+    fig, axes = plt.subplots(3, 1, figsize=(7, 9), dpi=120, sharex=True)
+    fig.patch.set_facecolor("#fcfcfb")
+    best = (0.0, 0.0)
+    for ax, key, ylab in zip(axes, ("P", "R", "F1"),
+                             ("Precision", "Recall", "F1")):
+        ax.set_facecolor("#fcfcfb")
+        for i, cat in enumerate(cats):
+            c = curves[cat]
+            label = names[cat] if cat < len(names) else str(cat)
+            if small:
+                ax.plot(c["conf"], c[key], color=_SERIES[i], linewidth=1.6,
+                        label=label if key == "P" else None)
+            else:
+                ax.plot(c["conf"], c[key], color="#c9c8c2", linewidth=0.8)
+        mean = np.mean([curves[cat][key] for cat in cats], axis=0)
+        ax.plot(curves[cats[0]]["conf"], mean, color="#0b0b0b",
+                linewidth=2.5, label="all classes" if key == "P" else None)
+        if key == "F1":
+            j = int(np.argmax(mean))
+            cbest = float(curves[cats[0]]["conf"][j])
+            best = (cbest, float(mean[j]))
+            ax.annotate(f"best F1 {mean[j]:.2f} @ conf {cbest:.2f}",
+                        (cbest, mean[j]), textcoords="offset points",
+                        xytext=(6, 6), fontsize=8, color="#0b0b0b")
+            ax.axvline(cbest, color="#c9c8c2", linewidth=0.8)
+        ax.set_ylim(0, 1.05)
+        ax.set_ylabel(ylab, color="#0b0b0b")
+        ax.grid(True, color="#e8e7e3", linewidth=0.6)
+        for sp in ax.spines.values():
+            sp.set_color("#c9c8c2")
+        ax.tick_params(colors="#52514e")
+    axes[0].legend(loc="lower left", fontsize=7, frameon=False)
+    axes[-1].set_xlim(0, 1)
+    axes[-1].set_xlabel("Confidence threshold", color="#0b0b0b")
+    axes[0].set_title("Precision / Recall / F1 vs confidence @ IoU 0.5",
+                      color="#0b0b0b")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+    return best

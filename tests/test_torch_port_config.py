@@ -248,8 +248,10 @@ def test_not_ported_parts_raise_by_name(tmp_path):
 
 def test_lazy_exports_and_cli(tiny_variant, tmp_path, monkeypatch):
     """The package exports the serving entry points lazily; the CLI serves
-    a config's newest checkpoint through a BatchingDetector, and its other
-    modes raise naming their ROADMAP item."""
+    a config's newest checkpoint through a BatchingDetector, and its test
+    and export modes run on it (ported with run_test and engine/export.py;
+    their parity is held in tests/test_torch_port_run_test.py and
+    tests/test_torch_port_export.py)."""
     assert heltondetection_tpu_torch.load_detector is runner.load_detector
     assert heltondetection_tpu_torch.BatchingDetector is \
         p_serve.BatchingDetector
@@ -258,13 +260,22 @@ def test_lazy_exports_and_cli(tiny_variant, tmp_path, monkeypatch):
         heltondetection_tpu_torch.no_such_name
 
     cfg_path = _write_config(tmp_path)
-    for mode, item in (("test", "A9"), ("export", "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["--mode", mode, "--config", cfg_path])
-
     _, variables = jax_variables(nc=NC, seed=3, head_scale=0.25)
     cfg = p_base.load_config(cfg_path)
     checkpoint_from_jax_variables(variables, cfg.ckpt_dir, step=1)
+    frame = tmp_path / "frame.npy"
+    np.save(frame, _noise((96, SIZE, 3), 5))
+    printed = []
+    with monkeypatch.context() as m:
+        m.setattr("heltondetection_tpu_torch.data.readers.imread_rgb",
+                  np.load)
+        m.setattr("builtins.print", printed.append)
+        assert cli.main(["--mode", "test", "--config", cfg_path, "--source",
+                         str(frame), "--device", "cpu"]) == 0
+    assert len(printed[0]["scores"]) > 0
+    assert cli.main(["--mode", "export", "--config", cfg_path, "--out",
+                     str(tmp_path / "m.pt2"), "--device", "cpu"]) == 0
+    assert (tmp_path / "m.pt2").stat().st_size > 1000
     served = {}
 
     def fake_serve_http(batcher, **kw):

@@ -35,9 +35,11 @@ from heltondetection_tpu_torch.engine.evaluator import (Evaluator,
                                                        make_packed_serve_step)
 from heltondetection_tpu_torch import cli
 from heltondetection_tpu_torch.configs.base import load_config
+from heltondetection_tpu_torch.engine.export import export_model
 from heltondetection_tpu_torch.engine.infer import Detector
 from heltondetection_tpu_torch.engine.runner import (forward_for_eval,
-                                                     load_detector, run_train)
+                                                     load_detector, run_test,
+                                                     run_train)
 from heltondetection_tpu_torch.engine.serve import BatchingDetector
 from heltondetection_tpu_torch.kernels import launch_counts
 from heltondetection_tpu_torch.models.yolov5 import build_yolov5
@@ -184,7 +186,9 @@ def _warmup_on_cuda_detector():
                                    "load_detector", "BatchingDetector.warmup",
                                    "cli", "forward_for_eval_rcnn",
                                    "load_detector_rcnn", "cli_eval_rcnn",
-                                   "cli_serve_rcnn", "run_train_rcnn"])
+                                   "cli_serve_rcnn", "run_train_rcnn",
+                                   "run_test", "export_model",
+                                   "cli_test_rcnn", "cli_export_rcnn"])
 def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
     """(h) with no CUDA, every entry point raises unless device="cpu", for
     a YOLOv5 and a FasterRCNN config alike."""
@@ -214,6 +218,14 @@ def test_entry_points_raise_without_cuda(entry, weights, monkeypatch):
         "cli_serve_rcnn": lambda: cli.main(["--mode", "serve", "--config",
                                             rcnn_config]),
         "run_train_rcnn": lambda: run_train(load_config(rcnn_config)),
+        "run_test": lambda: run_test(load_config(config), "frame.jpg"),
+        "export_model": lambda: export_model(load_config(config), model,
+                                             "model.pt2"),
+        "cli_test_rcnn": lambda: cli.main(["--mode", "test", "--config",
+                                           rcnn_config, "--source",
+                                           "frame.jpg"]),
+        "cli_export_rcnn": lambda: cli.main(["--mode", "export", "--config",
+                                             rcnn_config]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

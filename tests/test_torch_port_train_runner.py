@@ -302,10 +302,23 @@ def test_not_ported_train_options_raise(change, item, tmp_path):
 
 
 def test_not_ported_eval_and_data_parts_raise(tmp_path):
-    cfg = p_base.ExperimentConfig(work_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A9"):
-        runner.run_eval(cfg, dump_json=str(tmp_path / "dets.json"),
-                        device="cpu")
+    """``dump_json`` writes the dets as a COCO results list (ported with
+    the eval artifacts); ``eval.int8`` still raises, naming A15."""
+    val_ann, val_imgs = build_coco_dataset(str(tmp_path / "val"),
+                                           n_images=2, seed=2)
+    cfg = p_base.ExperimentConfig(
+        work_dir=str(tmp_path), model=p_base.ModelConfig(img_size=SIZE),
+        data=p_base.DataConfig(val_ann=val_ann, val_imgs=val_imgs),
+        eval=p_base.EvalConfig(batch_size=2, conf_thres=0.001))
+    model = runner.build_model(cfg.model, 4)
+    init_weights(model, torch.Generator().manual_seed(9))
+    out = tmp_path / "dets.json"
+    runner.run_eval(cfg, model.state_dict(), model, verbose=False,
+                    dump_json=str(out), device="cpu")
+    dets = json.loads(out.read_text())
+    assert isinstance(dets, list) and len(dets) > 0
+    assert set(dets[0]) == {"image_id", "category_id", "bbox", "score"}
+    assert {d["category_id"] for d in dets} <= {10, 11, 12, 13}
     cfg.eval.int8 = True
     with pytest.raises(NotImplementedError, match="A15"):
         runner.run_eval(cfg, device="cpu")

@@ -206,3 +206,41 @@ def port_train_draws(key, b: int = 2):
     n_anchors = PR.pyramid_anchors(TRAIN_SIZE)[0].shape[0]
     return loss_draws(key, b, n_anchors,
                       TRAIN_CFG["rpn_post_nms_topk"] + TRAIN_M)
+
+
+# the FasterRCNN of the export, run_test and eval-artifact tests: ResNet18,
+# FPN, coupled head, RoIAlign over P2-P5, 64², 4 classes, small proposal
+# budgets
+SMALL_SIZE = 64
+SMALL_CFG = dict(num_classes=4, img_size=SMALL_SIZE, backbone="resnet18",
+                 rpn_pre_nms_topk=128, rpn_post_nms_topk=32)
+
+
+def small_frame(seed: int = 40) -> np.ndarray:
+    """A seeded noise frame (64, 64, 3) uint8."""
+    return np.random.default_rng(seed).integers(
+        0, 256, (SMALL_SIZE, SMALL_SIZE, 3)).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def small_rcnn(seed: int = 17):
+    """The reference's small FasterRCNN, its seeded variables and the
+    port's model holding them, the four predictor layers tamed on
+    ``small_frame()`` in both."""
+    import jax
+    from heltondetection_tpu.models import faster_rcnn as JR
+    jm = JR.FasterRCNN(JR.RCNNConfig(**SMALL_CFG))
+    shapes = jax.eval_shape(lambda: JR.init_faster_rcnn(
+        jm, jax.random.PRNGKey(0), SMALL_SIZE))
+    variables = draw_variables(shapes, seed=seed)
+    x = torch.from_numpy(small_frame()[None] / 255.0).float()
+    pm = tame(variables, port_small_rcnn(variables), x)
+    return jm, variables, pm
+
+
+def port_small_rcnn(variables):
+    """The port's small FasterRCNN holding ``variables``."""
+    from heltondetection_tpu_torch.models import faster_rcnn as PR
+    with torch.device("meta"):
+        pm = PR.FasterRCNN(PR.RCNNConfig(**SMALL_CFG))
+    return load_port(pm.to_empty(device="cpu"), variables)
