@@ -225,6 +225,44 @@ fails:
       4. each kernel by CUDA events through its torch.library op and
          through its ctypes wrapper, in turns, at the kernel table's
          shapes;
+   j. W8A8 int8 serving (ops/quant.py), each path with the counts reset
+      just before and read just after:
+      1. yolov5_s_coco_640 (phase 4a's model): calibrated on 32 seeded
+         frames letterboxed to 640², the "balanced" per-layer tree and the
+         flow tree; make_packed_serve_step(quant=...) at B=32 in both
+         modes must launch nms_fixpoint once and give finite dets;
+         int8_conv2d (torch._int_mm on an im2col) must equal
+         int8_conv2d_plain (float64 conv) int32 bit for bit at every
+         distinct conv shape of both steps; card against CPU, each
+         quantized conv of both modes, fed the card's own input on 2
+         frames, must quantize to the same int8 codes and sum to the same
+         int32 on the CPU; end to end on a float32 copy of the model, the
+         float step's dets must match the CPU's (2 px, 0.02, at most 5 %
+         unmatched) and the int8 step's are recorded (random weights
+         amplify one moved code into other dets); then ms a step int8
+         (both modes) against
+         bf16 by CUDA events in turns, the device ms and kernels of a
+         step, calibration and tree-build s, and per distinct shape
+         int8_conv2d, its _int_mm alone and the bf16 cuDNN conv by CUDA
+         events and their kernels by name (profiler), beside the shape's
+         bound (int8 tensor-core peak or bytes);
+      2. faster_rcnn_pafpn_decoupled_coco_832 (seed 0, predictors
+         scaled): quantize_rcnn on 32 frames, faster_rcnn_infer of the
+         int8 copy at B=8 must launch nms_mask 6 times, its dets equal
+         the plain NMS's (plain_nms()), its int8 products equal the plain
+         version's; ms int8 against float in turns;
+      3. the int8 entry points of both configs (the val set 32 seeded
+         frames in memory, swapped in for build_dataset; no image decoder
+         on the card's machine): run_eval with eval.int8 twice (the second
+         call loads the cached tree: one calibration in all), then
+         load_detector with test.int8 and a BatchingDetector over it (its
+         dets those of detect_batch), run_test of an in-memory frame,
+         export_model with test.int8, whose loaded .pt2 must give the
+         eager int8 serving function's dets bit for bit and launch
+         nms_mask 1 (YOLOv5) or 6 (FasterRCNN) times a call;
+      4. ops/letterbox.letterbox_image on the card against the CPU
+         (downscale, upscale, 1:1; uint8 within one grey level, float32
+         within 1e-2) with equal letterbox parameters;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -249,14 +287,17 @@ fails:
    so library_ms is null for every kernel.
 
 The lines before the last are the serve, eval, serving, train,
-train_configs, rcnn, rcnn_train and export_test_artifacts lines, the
+train_configs, rcnn, rcnn_train, export_test_artifacts and int8 lines,
+the
 kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
 evals' launches as launches_train_eval and
 launches_train_eval_visdrone_1280 and run_test's as
 launches_run_test_yolov5, nms_mask's the fused route's above N=2400 as
 launches_fused_route_n2401, FasterRCNN's as launches_rcnn_infer,
 launches_rcnn_eval and launches_rcnn_train, the exported programs' per call
-and run_test's, with its largest N; iou_matrix's FasterRCNN training
+and run_test's, the int8 infer's and int8 exports' as launches_int8_rcnn
+and launches_int8_export, with its largest N; nms_fixpoint's the int8
+serve steps' as launches_int8_serve; iou_matrix's FasterRCNN training
 launches as launches_rcnn_train and its times at the assigner's shape as
 rcnn_assigner; each entry's op_ms the time through its custom op and
 through its wrapper), and the card's nvidia-smi line; the last line is
@@ -2784,6 +2825,524 @@ def ops_cost_phase(dev, smi: str) -> dict:
     return out
 
 
+# phase 4j: W8A8 int8 serving. The calibration set: 32 seeded frames
+# (letterboxed to each config's size); the H100's dense int8 tensor-core
+# peak (NVIDIA data sheet, SXM) bounds int8_conv2d beside HBM
+INT8_OPS_PER_S = 1979e12
+INT8_CALIB_FRAMES = 32
+# the float32 serve step's dets on the card against the CPU's: boxes within
+# 2 px and scores within 0.02, at most 5 % unmatched (the int8 step's are
+# recorded with the same matching, not held)
+INT8_CPU_BOX_TOL, INT8_CPU_SCORE_TOL, INT8_CPU_MISS_SHARE = 2.0, 0.02, 0.05
+
+
+class Int8Convs:
+    """Inside the block, every int8 product of the quantized models
+    (``int8_conv2d`` through ``LayerQuant``/``FlowQuant``) records its
+    int8 input, weight and geometry by distinct shape, and ``calls``
+    counts the products."""
+
+    def __init__(self):
+        self.shapes, self.calls = {}, 0
+
+    def __enter__(self):
+        from heltondetection_tpu_torch.models import common
+        self.orig = common.int8_conv2d
+
+        def recording(x_q, w_q, stride=1, pad=0, groups=1):
+            self.calls += 1
+            key = (tuple(x_q.shape), tuple(w_q.shape), stride, pad, groups)
+            if key not in self.shapes:
+                self.shapes[key] = [x_q.clone(), w_q, 0]
+            self.shapes[key][2] += 1
+            return self.orig(x_q, w_q, stride, pad, groups)
+
+        common.int8_conv2d = recording
+        return self
+
+    def __exit__(self, *exc):
+        from heltondetection_tpu_torch.models import common
+        common.int8_conv2d = self.orig
+
+
+def int8_layers_card_vs_cpu(model, tree, x) -> dict:
+    """Every quantized conv of ``tree`` on a packed copy of ``model`` on
+    the card, run on ``x`` (uint8 frames on the card): its recorded input,
+    moved to the CPU, through the same conv of a CPU copy must quantize to
+    the same int8 codes, and their int8 products must give the same int32
+    sums on both devices. The float parts around (the affine, SiLU) are
+    held end to end elsewhere."""
+    import torch
+    from heltondetection_tpu_torch.models import common
+    from heltondetection_tpu_torch.models.yolov5 import packed_copy
+    from heltondetection_tpu_torch.ops import int8_conv
+    from heltondetection_tpu_torch.ops import quant as Q
+    card = Q.attach_quant(packed_copy(model).to(
+        x.device, memory_format=torch.channels_last), tree)
+    host = dict(Q.attach_quant(packed_copy(model).to(
+        "cpu", memory_format=torch.channels_last), tree).named_modules())
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args, n=n: inputs.__setitem__(n, (m, args[0])))
+        for n, m in card.named_modules()
+        if isinstance(m, (common.LayerQuant, common.FlowQuant))]
+    with torch.inference_mode():
+        card(x.float() / 255.0)
+    for h in hooks:
+        h.remove()
+    codes = sums = 0
+    for name, (mod, inp) in inputs.items():
+        moved = (common.QT(inp.i8.cpu(), inp.scale.cpu(), inp.dtype)
+                 if isinstance(inp, common.QT) else inp.cpu())
+        recs = []
+        for m, v in ((mod, inp), (host[name], moved)):
+            with Int8Convs() as rec, torch.inference_mode():
+                m(v)
+            recs.append(next(iter(rec.shapes.items())))
+        (key, (xq_c, wq, _)), (_, (xq_h, wq_h, _)) = recs
+        codes += int((xq_c.cpu() != xq_h).sum())
+        geom = key[2:]
+        y_c = int8_conv.int8_conv2d(xq_c, wq, *geom).cpu()
+        y_h = int8_conv.int8_conv2d(xq_h, wq_h, *geom)
+        sums += int((y_c != y_h).sum())
+    return {"layers": len(inputs), "code_mismatches": codes,
+            "sum_mismatches": sums}
+
+
+def int8_conv_bound_ms(x_shape, w_shape, stride, pad) -> tuple:
+    """Least time of one int8 conv: its int8 input and weight read and its
+    int32 output written over the HBM rate, its multiply-adds over the
+    int8 tensor-core peak."""
+    b, c, h, w = x_shape
+    o, cig, k, _ = w_shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    t_bytes = (b * c * h * w + o * cig * k * k + 4 * b * o * ho * wo) \
+        / HBM_BYTES_PER_S
+    t_ops = 2 * b * ho * wo * o * cig * k * k / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def int8_conv_checks(dev, recorded: dict, timed: bool) -> dict:
+    """int8_conv2d against int8_conv2d_plain (float64) on the card at each
+    recorded shape, int32 bit-equal; with ``timed``, per shape the ms by
+    CUDA events of int8_conv2d, of its GEMM alone (``int8_gemm`` on the
+    im2col matrix) and of the bf16 cuDNN conv of the same shape
+    (channels-last) beside the shape's bound, and over one step's worth of
+    calls (each shape as often as the step runs it) the device kernels of
+    the GEMMs and of the bf16 convs by name (profiler)."""
+    import torch
+    import torch.nn.functional as F
+    from heltondetection_tpu_torch.ops import int8_conv
+    out, mism = [], 0
+    gemms, convs = [], []
+    for (xs, ws, stride, pad, groups), (x_q, w_q, n) in recorded.items():
+        got = int8_conv.int8_conv2d(x_q, w_q, stride, pad, groups)
+        want = int8_conv.int8_conv2d_plain(x_q, w_q, stride, pad, groups)
+        bad = int((got != want).sum())
+        mism += bad
+        row = {"x": list(xs), "w": list(ws), "stride": stride, "pad": pad,
+               "groups": groups, "per_step": n, "mismatches": bad}
+        del got, want
+        if timed:
+            k = ws[2]
+            cols = int8_conv._columns(x_q.permute(0, 2, 3, 1), k, stride, pad)
+            a = cols.reshape(-1, ws[1] * k * k).contiguous()
+            wm = w_q.reshape(ws[0], -1)
+            xb = x_q.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wb = w_q.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            fns = {"int8_conv2d": lambda: int8_conv.int8_conv2d(
+                       x_q, w_q, stride, pad, groups),
+                   "int_mm": lambda a=a, wm=wm: int8_conv.int8_gemm(a, wm),
+                   "bf16_conv": lambda xb=xb, wb=wb, geom=(stride, pad, 1,
+                                                           groups):
+                       F.conv2d(xb, wb, None, *geom)}
+            for name, fn in fns.items():
+                row[f"{name}_ms"] = cuda_ms(fn, 10)
+            gemms += [fns["int_mm"]] * n
+            convs += [fns["bf16_conv"]] * n
+            row["bound_ms"], row["bound_by"] = int8_conv_bound_ms(
+                xs, ws, stride, pad)
+        out.append(row)
+    if mism:
+        raise AssertionError(f"int8_conv2d differs from its plain version "
+                             f"in {mism} int32 values on the card")
+    res = {"shapes": out, "mismatches": mism}
+    if timed:
+        for name, calls in (("int_mm", gemms), ("bf16_conv", convs)):
+            res[f"{name}_kernels_per_step"] = [
+                [kn[:80], ms] for kn, ms in device_kernels(
+                    lambda calls=calls: [c() for c in calls], 3)]
+    return res
+
+
+def int8_yolo_phase(dev, smi: str, model, cfg, letterbox_np) -> dict:
+    """Phase 4j.1 (see the module docstring)."""
+    import torch
+    from heltondetection_tpu_torch.engine.evaluator import \
+        make_packed_serve_step
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.yolov5 import build_yolov5
+    from heltondetection_tpu_torch.ops import quant as Q
+    out = {"card": smi}
+    size = cfg.model.img_size
+    calib = np.stack([letterbox_np(f[0], np.zeros((0, 4), np.float32),
+                                   size)[0]
+                      for f in SynthFrames(INT8_CALIB_FRAMES, 51).frames])
+    skip = Q.YOLO_INT8_SKIP_PRESETS[cfg.test.int8_float_tail]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amax = Q.calibrate_amax(model, Q._batched(calib, 8))
+    out["calibrate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trees = {"layer": Q.build_quant_tree(model, amax, skip=skip),
+             "flow": Q.build_flow_tree(model, amax, skip=skip,
+                                       float_out=Q.YOLO_FLOW_FLOAT_OUT)}
+    out["tree_build_s"] = time.perf_counter() - t0
+    kw = dict(conf_thres=0.001, iou_thres=0.65, pre_nms_topk=1024)
+    model32 = build_yolov5("s", 80, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    steps = {"bf16": make_packed_serve_step(model, 80, device=dev, **kw)}
+    for mode, tree in trees.items():
+        steps[mode] = make_packed_serve_step(model, 80, device=dev,
+                                             quant=tree, **kw)
+    rng = np.random.default_rng(52)
+    xb = torch.from_numpy(rng.integers(0, 256, (32, size, size, 3))
+                          .astype(np.uint8)).to(dev)
+    for mode in ("layer", "flow"):
+        steps[mode](xb)                          # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with Int8Convs() as rec:
+            dets = [t.cpu() for t in steps[mode](xb)]
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        if counts["nms_fixpoint"] != 1 or not bool(
+                torch.isfinite(dets[0]).all()) or int(dets[3].sum()) == 0:
+            raise AssertionError(f"int8 {mode} serve step B=32: launches "
+                                 f"{counts}, {int(dets[3].sum())} dets")
+        checks = int8_conv_checks(dev, rec.shapes, timed=mode == "layer")
+        out[mode] = {"launches": counts, "dets_b32": int(dets[3].sum()),
+                     "int8_convs_per_step": rec.calls,
+                     "distinct_shapes": len(rec.shapes),
+                     "conv_checks": checks}
+        log(f"int8 {mode} serve step B=32: launches {counts}, "
+            f"{int(dets[3].sum())} dets, {rec.calls} int8 convs, "
+            f"int8_conv2d == plain at {len(rec.shapes)} shapes")
+        # card against CPU, layer by layer: every quantized conv of the
+        # step, fed the card's own input, quantizes to the same int8 codes
+        # and sums to the same int32 on the CPU
+        layers = int8_layers_card_vs_cpu(model, trees[mode], xb[:2])
+        # end to end on a float32 copy (TF32 off): recorded, not held. The
+        # float step agrees; the int8 one does not, since a float32 ulp
+        # that moves one code at the first int8 conv is amplified by these
+        # random weights layer after layer (PERF.md, the int8 findings)
+        e2e = {}
+        for q in (None, trees[mode]):
+            card_step = make_packed_serve_step(model32, 80, device=dev,
+                                               quant=q, **kw)
+            cpu_step = make_packed_serve_step(model32, 80, device="cpu",
+                                              quant=q, **kw)
+            card = [t.cpu().numpy() for t in card_step(xb[:2])]
+            host = [t.numpy() for t in cpu_step(xb[:2].cpu())]
+            e2e["float" if q is None else "int8"] = {
+                "dets": int(card[3].sum()), "misses": match_dets(
+                    card, host, INT8_CPU_SCORE_TOL, INT8_CPU_BOX_TOL)}
+        out[mode]["card_vs_cpu"] = {"per_layer": layers, "end_to_end": e2e}
+        log(f"int8 {mode} card vs CPU: {layers['layers']} quantized convs "
+            f"on the card's inputs, {layers['code_mismatches']} int8 codes "
+            f"and {layers['sum_mismatches']} int32 sums apart; end to end "
+            f"(float32 copy, 2 frames, boxes {INT8_CPU_BOX_TOL} px, scores "
+            f"{INT8_CPU_SCORE_TOL}): {e2e}")
+        if layers["code_mismatches"] or layers["sum_mismatches"] or \
+                e2e["float"]["misses"] > INT8_CPU_MISS_SHARE * max(
+                    e2e["float"]["dets"], 1):
+            raise AssertionError(f"int8 {mode} on the card differs from the "
+                                 f"CPU")
+        del card_step, cpu_step, card, host
+    rows = out["layer"]["conv_checks"]["shapes"]
+    out["int8_conv2d_per_step"] = {
+        k: sum(r["per_step"] * r[k] for r in rows)
+        for k in ("int8_conv2d_ms", "int_mm_ms", "bf16_conv_ms", "bound_ms")}
+    out["int8_conv2d_per_step"]["bound_by"] = sorted(
+        {r["bound_by"] for r in rows})
+    for name in ("int_mm", "bf16_conv"):
+        out["int8_conv2d_per_step"][f"{name}_device_ms"] = sum(
+            ms for _, ms in out["layer"]["conv_checks"][
+                f"{name}_kernels_per_step"])
+    # ms a step at B=32, in turns
+    order = ("bf16", "layer", "flow", "flow", "layer", "bf16")
+    ms = {k: [] for k in steps}
+    for k in order:
+        ms[k].append(cuda_ms(lambda k=k: steps[k](xb), 10))
+    out["step_ms_b32"] = ms
+    for k in ("bf16", "layer"):
+        out[f"{k}_device_b32"] = device_work(lambda k=k: steps[k](xb))
+    log(f"int8 serve step B=32 {size}² ms (events, in turns): " + ", ".join(
+        f"{k} {v}" for k, v in ms.items()) + f"; device ms, kernels: bf16 "
+        f"{out['bf16_device_b32']}, layer {out['layer_device_b32']}; "
+        f"calibration {out['calibrate_s']:.2f} s, trees "
+        f"{out['tree_build_s']:.3f} s ({smi})")
+    return out, trees
+
+
+def int8_rcnn_phase(dev, smi: str, cfg, letterbox_np) -> dict:
+    """Phase 4j.2 (see the module docstring)."""
+    import torch
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.faster_rcnn import \
+        faster_rcnn_infer
+    from heltondetection_tpu_torch.ops import quant as Q
+    out = {"card": smi}
+    size = cfg.model.img_size
+    calib = np.stack([letterbox_np(f[0], np.zeros((0, 4), np.float32),
+                                   size)[0]
+                      for f in SynthFrames(INT8_CALIB_FRAMES, 53).frames])
+    rng = np.random.default_rng(54)
+    x = torch.from_numpy(rng.integers(0, 256, (8, size, size, 3))
+                         .astype(np.float32) / 255.0).to(dev)
+    model = rcnn_model(cfg, dev, 0, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = Q.quantize_rcnn(model, calib)
+    out["quantize_s"] = time.perf_counter() - t0
+    qm = Q.attach_quant(model, tree)
+    with torch.inference_mode():
+        faster_rcnn_infer(qm, x)                  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with Int8Convs() as rec:
+            dets = [t.cpu() for t in faster_rcnn_infer(qm, x)]
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        with plain_nms():
+            plain = [t.cpu() for t in faster_rcnn_infer(qm, x)]
+    same = all(torch.equal(a, b) for a, b in zip(dets, plain))
+    n = int(dets[3].sum())
+    log(f"int8 faster_rcnn_infer B=8 {size}²: launches {counts}, {n} dets, "
+        f"{rec.calls} int8 convs at {len(rec.shapes)} shapes; dets equal "
+        f"to the plain NMS's: {same}")
+    if counts != {"nms_fixpoint": 0, "nms_mask": 6, "iou_matrix": 0} or \
+            not same or n == 0 or not bool(torch.isfinite(dets[0]).all()):
+        raise AssertionError("int8 faster_rcnn_infer: launches, dets or the "
+                             "plain NMS's dets are wrong")
+    checks = int8_conv_checks(dev, rec.shapes, timed=False)
+    ms = {"float": [], "int8": []}
+
+    def infer(m):
+        with torch.inference_mode():
+            return faster_rcnn_infer(m, x)
+
+    for k in ("float", "int8", "int8", "float"):
+        ms[k].append(cuda_ms(lambda k=k: infer(model if k == "float"
+                                               else qm), 5))
+    out.update({"launches": counts, "dets_b8": n, "plain_nms_equal": same,
+                "int8_convs_per_step": rec.calls,
+                "distinct_shapes": len(rec.shapes),
+                "conv_mismatches": checks["mismatches"],
+                "step_ms_b8": ms,
+                "float_device_b8": device_work(lambda: infer(model)),
+                "int8_device_b8": device_work(lambda: infer(qm))})
+    log(f"int8 faster_rcnn_infer B=8 ms (events, in turns): {ms}; device "
+        f"ms, kernels: float {out['float_device_b8']}, int8 "
+        f"{out['int8_device_b8']}; quantize_rcnn {out['quantize_s']:.2f} s "
+        f"({smi})")
+    return out, model
+
+
+class MemoryVal:
+    """Inside the block, the runner's val reader (``build_dataset``) is
+    ``ds``, an in-memory reader: the card's machine has no image decoder."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __enter__(self):
+        from heltondetection_tpu_torch.engine import runner
+        self.orig = runner.build_dataset
+        runner.build_dataset = lambda dc, split="train": self.ds
+        return self
+
+    def __exit__(self, *exc):
+        from heltondetection_tpu_torch.engine import runner
+        runner.build_dataset = self.orig
+
+
+def int8_entry_phase(dev, smi: str, model, rmodel, work: str) -> dict:
+    """Phase 4j.3: the int8 entry points of both configs, the val set in
+    memory (32 seeded frames), one calibration each through the cache."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.data import readers
+    from heltondetection_tpu_torch.engine import export as E
+    from heltondetection_tpu_torch.engine import runner
+    from heltondetection_tpu_torch.engine.serve import BatchingDetector
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.ops import quant as Q
+    from heltondetection_tpu_torch.utils.ckpt import save_eval_variables
+    out = {"card": smi}
+    ds = SynthFrames(INT8_CALIB_FRAMES, 55)
+    rng = np.random.default_rng(56)
+    cases = (("yolov5_s_coco_640", YOLO_CONFIG, model, "nms_fixpoint", 1),
+             ("faster_rcnn_pafpn_decoupled_coco_832", RCNN_CONFIG, rmodel,
+              "nms_mask", 6))
+    calibrations = []
+    calibrate = Q.calibrate_amax
+
+    def counted(*a, **k):
+        calibrations.append(1)
+        return calibrate(*a, **k)
+
+    Q.calibrate_amax = counted
+    try:
+        for name, config, net, kernel, per_export_call in cases:
+            res = {}
+            cfg = rcnn_config(config)
+            cfg = dataclasses.replace(
+                cfg, name=f"int8_{name}", work_dir=work,
+                data=dataclasses.replace(cfg.data, val_ann="in-memory"),
+                eval=dataclasses.replace(cfg.eval, int8=True, batch_size=8),
+                test=dataclasses.replace(cfg.test, int8=True,
+                                         conf_thres=0.001))
+            save_eval_variables(cfg.ckpt_dir, net.state_dict(), 1)
+            with MemoryVal(ds):
+                # run_eval twice: the second call loads the cached tree
+                del calibrations[:]
+                for call in ("calibrated", "cached"):
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    stats = runner.run_eval(cfg, net.state_dict(), net,
+                                            verbose=False, device=dev)
+                    torch.cuda.synchronize()
+                    res[f"run_eval_{call}"] = {
+                        "s": time.perf_counter() - t0,
+                        "AP": stats["AP"], "launches": dict(launch_counts),
+                        "calibrations": len(calibrations)}
+                if calibrations != [1]:
+                    raise AssertionError(f"run_eval int8 [{name}] "
+                                         f"calibrated {len(calibrations)} "
+                                         f"times in two calls")
+                # load_detector and a BatchingDetector over it
+                det = runner.load_detector(cfg, device=dev)
+                frames = [rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+                          for hw in ((480, 640), (720, 1280), (640, 640),
+                                     (375, 500))]
+                reset_launch_counts()
+                direct = det.detect_batch(frames)
+                torch.cuda.synchronize()
+                res["load_detector_launches"] = dict(launch_counts)
+                with BatchingDetector(det, batch_size=4,
+                                      batch_buckets=(4,)) as bd:
+                    served = [bd.submit(f) for f in frames]
+                    served = [f.result(timeout=120) for f in served]
+                misses = sum(match_dets(
+                    tuple(np.asarray(a)[None] for a in (*s, np.ones(len(
+                        s[1]), bool))),
+                    tuple(np.asarray(a)[None] for a in (*d, np.ones(len(
+                        d[1]), bool))), 1e-3, 0.1)
+                    for s, d in zip(served, direct))
+                res["batching_misses"] = misses
+                n_direct = sum(len(d[1]) for d in direct)
+                # run_test of an in-memory frame (no image decoder here)
+                source = os.path.join(work, f"{name}_int8.jpg")
+                read_orig = readers.imread_rgb
+                readers.imread_rgb = {source: frames[0]}.__getitem__
+                try:
+                    reset_launch_counts()
+                    tested = runner.run_test(cfg, source, None, device=dev)
+                    torch.cuda.synchronize()
+                    res["run_test_launches"] = dict(launch_counts)
+                finally:
+                    readers.imread_rgb = read_orig
+                tested_n = check_dets(frames[0], (tested["boxes"],
+                                                  tested["scores"],
+                                                  tested["classes"]))
+                # export_model with test.int8 and its loaded program
+                path = os.path.join(work, f"{name}_int8.pt2")
+                t0 = time.perf_counter()
+                E.export_model(cfg, net, path, device=dev)
+                res["export_s"] = time.perf_counter() - t0
+                fn = E.load_serving_fn(path)
+                size = cfg.model.img_size
+                xs = [torch.from_numpy(rng.integers(
+                    0, 256, (1, size, size, 3)).astype(np.uint8)).to(dev)
+                    for _ in range(2)]
+                fn(xs[0])
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = [fn(x) for x in xs]
+                torch.cuda.synchronize()
+                res["export_launches_per_call"] = \
+                    launch_counts["nms_mask"] / len(xs)
+                qnet = Q.attach_quant(net, runner._int8_quant_tree(cfg, net))
+                serve = (E.faster_rcnn_serve if kernel == "nms_mask" else
+                         E.yolov5_serve(80, conf_thres=cfg.test.conf_thres,
+                                        iou_thres=cfg.test.iou_thres))
+                with torch.inference_mode():
+                    want = [serve(qnet, x) for x in xs]
+                bits = all(a.dtype == b.dtype and torch.equal(a, b)
+                           for g, w in zip(got, want)
+                           for a, b in zip(g, w))
+                res["export_bit_equal"] = bits
+                res["export_dets"] = sum(int(g[3].sum()) for g in got)
+                res["calibrations"] = len(calibrations)
+            log(f"int8 entry points [{name}]: run_eval {res['run_eval_calibrated']} "
+                f"then {res['run_eval_cached']}; load_detector launches "
+                f"{res['load_detector_launches']}, {n_direct} dets, the "
+                f"BatchingDetector's {misses} misses; run_test {tested_n} "
+                f"dets, launches {res['run_test_launches']}; export "
+                f"{res['export_s']:.2f} s, loaded dets bit-equal to eager "
+                f"int8: {bits} ({res['export_dets']} dets), nms_mask "
+                f"{res['export_launches_per_call']} a call; calibrations "
+                f"{len(calibrations)}")
+            ok = (res["run_eval_calibrated"]["launches"][kernel] > 0
+                  and res["load_detector_launches"][kernel] > 0
+                  and res["run_test_launches"][kernel] > 0
+                  and misses == 0 and n_direct > 0 and tested_n > 0 and bits
+                  and res["export_dets"] > 0
+                  and res["export_launches_per_call"] == per_export_call
+                  and calibrations == [1])
+            if not ok:
+                raise AssertionError(f"int8 entry points [{name}] failed")
+            out[name] = res
+    finally:
+        Q.calibrate_amax = calibrate
+    return out
+
+
+def letterbox_device_phase(dev) -> dict:
+    """Phase 4j.4: ops/letterbox.letterbox_image on the card against the
+    CPU: a downscale (1080x1920), an upscale (333x500) and the 1:1 case,
+    uint8 and float32, within 1e-2 grey levels (float32: the two devices'
+    antialiased bilinear kernels compute their filter weights and sums in
+    another order; 3.6e-3 measured) or one level (uint8, whose cast
+    truncates a float32 value the two devices may round apart)."""
+    import torch
+    from heltondetection_tpu_torch.ops.letterbox import letterbox_image
+    rng = np.random.default_rng(57)
+    out = {}
+    for hw in ((1080, 1920), (333, 500), (480, 640)):
+        img = rng.integers(0, 256, hw + (3,)).astype(np.uint8)
+        for dt, tol in ((torch.uint8, 1.0), (torch.float32, 1e-2)):
+            t = torch.from_numpy(img).to(dt)
+            host, hp = letterbox_image(t, 640, 640)
+            card, cp = letterbox_image(t.to(dev), 640, 640)
+            err = float((card.cpu().float() - host.float()).abs().max())
+            same_p = all(float(a) == float(b) for a, b in zip(hp, cp))
+            out[f"{hw[0]}x{hw[1]}_{str(dt)[6:]}"] = err
+            if err > tol or not same_p:
+                raise AssertionError(f"letterbox_image {hw} {dt} on the "
+                                     f"card: max err {err}, params "
+                                     f"equal {same_p}")
+    log(f"letterbox_image card vs CPU, max abs err: {out}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3395,6 +3954,21 @@ def main() -> int:
     log(f"[phase 4i.3 done at {time.perf_counter() - t_start:.1f} s]")
     ops_cost = ops_cost_phase(dev, smi)
     log(f"[phase 4i.4 done at {time.perf_counter() - t_start:.1f} s]")
+    # 4j. W8A8 int8 serving: both configs quantized, their int8 products
+    # held to the plain version, the int8 entry points, the letterbox
+    int8 = {"yolov5_s_coco_640": int8_yolo_phase(
+        dev, smi, model, rcnn_config(YOLO_CONFIG), letterbox_np)[0]}
+    log(f"[phase 4j.1 done at {time.perf_counter() - t_start:.1f} s]")
+    int8["faster_rcnn_pafpn_decoupled_coco_832"], rmodel = int8_rcnn_phase(
+        dev, smi, rcnn_config(RCNN_CONFIG), letterbox_np)
+    log(f"[phase 4j.2 done at {time.perf_counter() - t_start:.1f} s]")
+    with tempfile.TemporaryDirectory(dir=RUNS_DIR) as work:
+        int8["entry_points"] = int8_entry_phase(dev, smi, model, rmodel,
+                                                work)
+    del rmodel
+    log(f"[phase 4j.3 done at {time.perf_counter() - t_start:.1f} s]")
+    int8["letterbox_card_vs_cpu"] = letterbox_device_phase(dev)
+    log(f"[phase 4j.4 done at {time.perf_counter() - t_start:.1f} s]")
     # 5. times: CUDA events over back-to-back wrapper calls (the host's
     # launch cost included), and each kernel's device time by name from
     # torch.profiler
@@ -3605,6 +4179,12 @@ def main() -> int:
             visdrone["run_train"]["launches"]["nms_fixpoint"],
         "launches_run_test_yolov5":
             tested["yolov5_s_coco_640"]["launches"]["nms_fixpoint"],
+        "launches_int8_serve": sum(
+            int8["yolov5_s_coco_640"][m]["launches"]["nms_fixpoint"]
+            for m in ("layer", "flow")),
+        "launches_int8_entry_points": {
+            k: v for k, v in int8["entry_points"]["yolov5_s_coco_640"].items()
+            if k.endswith("launches")},
         "op_ms_b32": ops_cost["nms_fixpoint B=32 N=1024"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
@@ -3644,6 +4224,15 @@ def main() -> int:
                 "panel_launches"]["nms_mask"],
         "op_ms_b32": ops_cost["nms_mask B=32 N=1024"],
         "op_ms_b8": ops_cost["nms_mask B=8 N=1024"],
+        "launches_int8_rcnn": int8["faster_rcnn_pafpn_decoupled_coco_832"][
+            "launches"]["nms_mask"],
+        "launches_int8_export": {
+            k: v["export_launches_per_call"] * 2
+            for k, v in int8["entry_points"].items() if k != "card"},
+        "launches_int8_rcnn_entry_points": {
+            k: v for k, v in int8["entry_points"][
+                "faster_rcnn_pafpn_decoupled_coco_832"].items()
+            if k.endswith("launches")},
         "launches_rcnn_train": rcnn_train["run_train"]["launches"]["nms_mask"],
         "largest_n_checked": max(v["padded_n"] for v in
                                  rcnn["nms_mask_large_n"].values()),
@@ -3730,6 +4319,7 @@ def main() -> int:
     log(json.dumps({"export_test_artifacts": {
         "export": export, "run_test": tested, "artifacts": artifacts,
         "ops_cost": ops_cost}}))
+    log(json.dumps({"int8": int8}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -30,7 +30,12 @@ RoIPool → coupled or decoupled box head) through ``faster_rcnn_infer``,
 JSON, the per-class table, the confusion matrix and curve PNGs, the FLOPs
 count, a C++ matcher) and ``engine.export`` (``torch.export`` to ``.pt2``:
 the kernels are ``torch.library`` custom ops, ``kernels/ops.py``, so a
-loaded program needs this package importable).
+loaded program needs this package importable). W8A8 int8 serving for both
+families (``ops/quant.py``: calibration and the quant trees, run on a copy
+of the model; the int8 product ``ops/int8_conv.py`` on ``torch._int_mm``)
+through ``eval.int8`` and ``test.int8``; the device letterbox
+(``ops/letterbox.py``) and the Ultralytics state-dict loader
+(``utils/torch_convert.py``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).

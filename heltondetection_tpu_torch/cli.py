@@ -21,8 +21,9 @@ writes the checkpoint's serving program as a ``torch.export`` ``.pt2``
 ops of ``heltondetection_tpu_torch.kernels.ops``, so the package must be
 importable where it is loaded); ``serve`` loads the checkpoint with
 ``load_detector`` and serves it over HTTP through a ``BatchingDetector``.
-Every mode runs on CUDA unless ``--device cpu``. ``test.int8`` and
-``eval.int8`` raise (ROADMAP A15).
+Every mode runs on CUDA unless ``--device cpu``. ``eval.int8`` scores,
+and ``test.int8`` tests, serves and exports, the W8A8 int8 program
+(``ops/quant.py``; its quant tree is cached beside the run).
 
 The test, export and eval-artifact modes are held to the JAX package on
 the CPU by ``JAX_PLATFORMS=cpu python -m pytest

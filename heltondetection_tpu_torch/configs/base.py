@@ -55,10 +55,10 @@ class ModelConfig:
     # set False for from-scratch SyncBN training)
     backbone_frozen_stages: int = 1   # stem+layer1 stop-gradient
     # (torchvision trainable_backbone_layers=3; faster_rcnn only)
-    remat: bool = False               # jax.checkpoint the backbone stages:
+    remat: bool = False               # checkpoint the backbone stages:
     # the backward re-runs each stage instead of holding its activations —
-    # ~1/3 extra backbone FLOPs for O(boundary) activation memory. The TPU
-    # answer to HBM-bound high-res/large-batch training; math is identical
+    # ~1/3 extra backbone FLOPs for O(boundary) activation memory, for
+    # memory-bound high-res/large-batch training; math is identical
     # faster_rcnn proposal/sampling budgets (None = torchvision defaults:
     # 1000/1000 proposals, 256 RPN rows, 512 box rows — the mmdet/
     # torchvision constructor knobs; shrink for small images or tight HBM)
@@ -156,31 +156,25 @@ class TestConfig:
     tta_scales: Tuple[float, ...] = (1.0, 0.83)
     save_heatmaps: bool = False       # demo-style per-level panels
     int8: bool = False                # W8A8 PTQ serving (ops/quant.py):
-    # backbone/neck convs on the MXU's 2x int8 path; calibrated on val
+    # backbone/neck convs as int8 GEMMs; calibrated on val (or the dir)
     int8_mode: str = "layer"          # "layer" = per-conv W8A8, activations
-    # bf16 between convs (byte-neutral — measured ~1.00x, PERF_NOTES);
-    # "flow" = int8 activation flow (yolov5 only): activations stored int8
-    # between convs, halving the HBM traffic the models are bound by
+    # float (the model's dtype) between convs; "flow" = int8 activation
+    # flow (yolov5 only): activations stay int8 between convs, with
+    # per-channel scales folded into each consumer's weights
     int8_calib: int = 32              # calibration images (from the val set)
     int8_calib_dir: Optional[str] = None   # calibrate on this directory of
     # images instead of the val split (pure-inference hosts); the quant
     # tree is cached at {work_dir}/{name}/int8_quant.npz either way
     int8_float_tail: str = "balanced"  # which layer groups stay float
-    # (yolov5 only; measured by tools/sweep_int8_sensitivity.py — the AP
-    # cost of PTQ concentrates in the high-res early backbone and the
-    # top-down neck path feeding the small-box level). v5l 640² b128
-    # serve throughput vs bf16 1154 img/s in parentheses:
-    #   "none"     — quantize everything but the stem (1391 = 1.21x;
-    #                ~9 pts AP50-95 on the overfit protocol)
-    #   "balanced" — down1/c3_1 + lat4/td3 float (1401 = 1.21x — the
-    #                skipped convs were bandwidth-bound in int8 anyway;
-    #                ~1.5-1.9 pts). DEFAULT: keeps the full speed win
-    #                at a fraction of the AP cost.
-    #   "accuracy" — bb_early + neck_td float (1347 = 1.17x; ~0.5-1.1
-    #                pts, 0 with int8_act_clip="amax" in layer mode)
-    int8_act_clip: str = "p999"       # activation clip: "p999" (robust to
-    # outliers on real data) or "amax" (exact-range; best on the overfit
-    # protocol composed with the "accuracy" tail)
+    # (yolov5 only; the AP cost of PTQ concentrates in the high-res early
+    # backbone and the top-down neck path feeding the small-box level):
+    #   "none"     — quantize everything but the stem
+    #   "balanced" — also keep down1 and c3_1 (backbone) and lat4 and td3
+    #                (neck) float. DEFAULT
+    #   "accuracy" — keep the early backbone (down1 … c3_2) and the whole
+    #                top-down neck path (lat5, td4, lat4, td3) float
+    int8_act_clip: str = "p999"       # activation clip: "p999" (the
+    # 99.9th percentile, robust to outliers) or "amax" (the exact range)
     int8_skip: Optional[Tuple[str, ...]] = None   # explicit '/'-joined
     # module-path prefixes to keep float — overrides int8_float_tail
 

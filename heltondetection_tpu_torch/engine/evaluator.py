@@ -96,18 +96,26 @@ def make_packed_serve_step(model: YOLOv5, num_classes: int, *,
                            pre_nms_topk: int = 1024,
                            max_det: Optional[int] = None,
                            multi_label: bool = True, anchors=None,
-                           device=None) -> Callable:
+                           device=None, quant=None) -> Callable:
     """Build the serve step of a standard YOLOv5 ``model``: its weights are
     mapped once to the packed head (:func:`packed_copy`) on ``device`` (CUDA
     unless ``device="cpu"``), and ``step(images (B, S, S, 3) uint8 NHWC) →
     (boxes, scores, classes, valid)`` runs ``/255``, the model and the fused
     postprocess, dets (B, max_det or pre_nms_topk, …) in letterbox
-    coordinates. ``multi_label=False`` keeps one class per box."""
+    coordinates. ``multi_label=False`` keeps one class per box.
+
+    ``quant`` (an ``ops/quant.py`` tree: ``quantize_yolo`` or
+    ``quantize_yolo_flow``) runs every conv in the tree on the int8 path
+    (``ops/quant.attach_quant``); the head's logits stay float and its
+    candidate rows bf16."""
     dev = resolve_device(device)
     if num_classes != model.num_classes:
         raise ValueError(f"num_classes {num_classes} != the model's "
                          f"{model.num_classes}")
     model_p = packed_copy(model).to(dev, memory_format=torch.channels_last)
+    if quant is not None:
+        from heltondetection_tpu_torch.ops.quant import attach_quant
+        model_p = attach_quant(model_p, quant)
     kw = {} if anchors is None else {"anchors": anchors}
     post = make_fused_postprocess(num_classes, conf_thres=conf_thres,
                                   iou_thres=iou_thres,

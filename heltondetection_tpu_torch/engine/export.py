@@ -11,7 +11,9 @@ launches the kernels, on CPU tensors it runs their plain versions.
 
 Shapes are fixed at export (one frame of ``img_size``², uint8 NHWC), as
 the reference's are, and so is the device: a program exported on the card
-runs there.
+runs there. With ``test.int8`` the program is the quantized one: the int8
+weights, folded BatchNorm and activation scales are constants of the
+``.pt2``, and its int8 products are ``aten._int_mm`` nodes.
 """
 
 from __future__ import annotations
@@ -125,10 +127,14 @@ def export_faster_rcnn(model, img_size: int, path: str, *, device=None
 def export_model(cfg, model, path: str, *, device=None
                  ) -> torch.export.ExportedProgram:
     """Family dispatch of ``--mode export``: the config's test thresholds
-    and anchors for YOLOv5. ``test.int8`` raises: int8 is not ported."""
+    and anchors for YOLOv5. ``test.int8`` exports the quantized program:
+    the config's quant tree (``engine.runner._int8_quant_tree``,
+    calibrated or from its cache) on a quantized copy of ``model``."""
     if getattr(cfg.test, "int8", False):
-        raise NotImplementedError("test.int8 export is not ported yet "
-                                  "(ROADMAP A15)")
+        from heltondetection_tpu_torch.engine.runner import _int8_quant_tree
+        from heltondetection_tpu_torch.ops.quant import attach_quant
+        model = model.to(resolve_device(device)).eval()
+        model = attach_quant(model, _int8_quant_tree(cfg, model))
     if cfg.model.family == "yolov5":
         from heltondetection_tpu_torch.engine.runner import _cfg_anchors
         return export_yolov5(model, model.num_classes, cfg.model.img_size,

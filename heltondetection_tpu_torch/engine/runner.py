@@ -14,10 +14,11 @@ unfused one and FasterRCNN's on ``nms_mask``) with its artifacts (the COCO
 results JSON, the per-class table, the confusion matrix and curve PNGs,
 the FLOPs line), ``run_test`` (an image, a directory of images or a
 video, with the heat-map panels), the eval forward and ``load_detector``
-for both families. Parts not ported raise ``NotImplementedError`` naming
-their ROADMAP item: more than one device (A14), int8 (A15). The native
-C++ loader (A6) is not ported either: its configs train on the Python
-pipelines, and say so in the log.
+for both families, each in float or W8A8 int8 (``eval.int8``,
+``test.int8``: ``_int8_quant_tree`` and ``ops/quant.py``). Parts not
+ported raise ``NotImplementedError`` naming their ROADMAP item: more than
+one device (A14). The native C++ loader (A6) is not ported either: its
+configs train on the Python pipelines, and say so in the log.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ def _cfg_anchors(cfg: ExperimentConfig):
 
 
 def forward_for_eval(model: Model, num_classes: int, anchors=None,
-                     device=None) -> Callable:
+                     device=None, quant=None) -> Callable:
     """``fwd(images (B, S, S, 3) uint8) → (boxes (B, N, 4), obj (B, N),
     cls (B, N, C))``, the contract of ``Evaluator(forward_fn=…)`` and
     ``Detector(forward_fn=…)``: ``/255`` and a YOLOv5 and ``decode_full``
@@ -131,12 +132,17 @@ def forward_for_eval(model: Model, num_classes: int, anchors=None,
     ``faster_rcnn_infer``, whose fixed dets (B, max_det) come out as
     boxes, scores as ``obj`` and one-hot classes (zero rows where a det
     is not valid). The model moves to ``device`` (CUDA unless
-    ``device="cpu"``) in place, with channels-last weights."""
+    ``device="cpu"``) in place, with channels-last weights. ``quant`` (an
+    ``ops/quant.py`` tree) runs its convs on the int8 path, through a
+    quantized copy (``ops/quant.attach_quant``); ``model`` stays float."""
     dev = resolve_device(device)
     if num_classes != model.num_classes:
         raise ValueError(f"num_classes {num_classes} != the model's "
                          f"{model.num_classes}")
     model = model.to(dev, memory_format=torch.channels_last).eval()
+    if quant is not None:
+        from heltondetection_tpu_torch.ops.quant import attach_quant
+        model = attach_quant(model, quant)
     if isinstance(model, FasterRCNN):
         @torch.inference_mode()
         def fwd(images):
@@ -247,7 +253,11 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
     kernel ``nms_fixpoint``; off, ``forward_for_eval`` and
     ``make_postprocess`` (kernel ``nms_mask``). FasterRCNN always takes
     that second route, single-label, as in the reference; its own NMS
-    calls are ``nms_mask`` too.
+    calls are ``nms_mask`` too. ``eval.int8`` scores the int8 serving
+    program: the config's quant tree (:func:`_int8_quant_tree`, calibrated
+    or read from its cache) on a quantized copy of the network; the
+    in-training eval (``_reuse``) logs it ignored and scores float, as the
+    reference does.
 
     ``dump_json``: also write the detections as a COCO results JSON
     (pycocotools' ``loadRes`` format), labels mapped back to the dataset's
@@ -274,12 +284,13 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
     dev = resolve_device(device)
     get_logger()
     reuse = {} if _reuse is None else _reuse
-    if getattr(cfg.eval, "int8", False):
-        if _reuse is None:
-            raise NotImplementedError(
-                "eval.int8 is not ported yet (ROADMAP A15)")
+    int8 = getattr(cfg.eval, "int8", False)
+    if int8 and _reuse is not None:
+        # the in-loop eval scores float: calibrating per epoch would cost
+        # more than the eval itself
         _once(reuse, "int8_note", "eval.int8 ignored for in-training eval "
               "(float)")
+        int8 = False
     if reuse.get("ds") is None:
         reuse["ds"] = build_dataset(cfg.data, "val")
     ds = reuse["ds"]
@@ -291,18 +302,32 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         model = build_model(cfg.model, nc)
     rcnn = cfg.model.family == "faster_rcnn"
     fused = not rcnn and getattr(cfg.eval, "fused", True)
-    if "evaluator" not in reuse:
+    if "net" not in reuse:
+        reuse["net"] = _net_like(model, dev, packed_head=fused)
+    net = reuse["net"]
+    net.load_state_dict(
+        pack_head_variables(state_dict, nc) if fused else state_dict)
+    if int8:
+        # eval.int8 scores the program int8 serving runs: the quant tree
+        # of these weights (calibrated on the standard model, as serving
+        # calibrates, or from the cache) on a copy of the eval network
+        from heltondetection_tpu_torch.ops.quant import attach_quant
+        std = net
+        if fused:
+            std = _net_like(model, dev)
+            std.load_state_dict(state_dict)
+        net = attach_quant(net, _int8_quant_tree(cfg, std))
+    if "evaluator" not in reuse:       # (int8 runs only with a fresh reuse)
         anchors = _cfg_anchors(cfg)
         kw = dict(conf_thres=cfg.eval.conf_thres,
                   iou_thres=cfg.eval.iou_thres, max_det=cfg.eval.max_det)
-        net = _net_like(model, dev, packed_head=fused)
         if fused:
             post = make_fused_postprocess(
                 nc, pre_nms_topk=1024,
                 max_cls_per_box=4 if cfg.eval.multi_label else 1,
                 **kw, **({} if anchors is None else {"anchors": anchors}))
 
-            def step(images):
+            def step(images, net=net):
                 return post(net(images.float() / 255.0))
 
             ev = Evaluator(None, nc, step_fn=step, device=dev)
@@ -311,9 +336,7 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
                                             device=dev), nc,
                            multi_label=cfg.eval.multi_label and not rcnn,
                            device=dev, **kw)
-        reuse["net"], reuse["evaluator"] = net, ev
-    reuse["net"].load_state_dict(
-        pack_head_variables(state_dict, nc) if fused else state_dict)
+        reuse["evaluator"] = ev
     det = reuse.get("det")
     if det is None:
         det = reuse["det"] = DetEval(nc)
@@ -764,16 +787,23 @@ def _make_detector(cfg, model: Model, nc: int, *, device=None,
     ``nms_fixpoint``) unless ``cfg.eval.fused`` is off or the caller brings
     a ``detect_fn``; else, and always for FasterRCNN,
     :func:`forward_for_eval` and the single-label postprocess (kernel
-    ``nms_mask``)."""
+    ``nms_mask``). ``int8`` (default ``cfg.test.int8``) serves the quant
+    tree of :func:`_int8_quant_tree` on either route; a caller's
+    ``detect_fn`` runs as given, with a warning."""
     from heltondetection_tpu_torch.engine.infer import Detector
     dev = resolve_device(device)
     kw = dict(conf_thres=cfg.test.conf_thres, iou_thres=cfg.test.iou_thres,
               tta=cfg.test.tta, tta_scales=cfg.test.tta_scales)
     kw.update(overrides)
-    if kw.pop("int8", getattr(cfg.test, "int8", False)):
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP A15)")
+    int8 = kw.pop("int8", getattr(cfg.test, "int8", False))
     detect_fn = kw.pop("detect_fn", None)
+    if int8 and detect_fn is not None:
+        get_logger().warning(
+            "test.int8 requested but a caller-supplied detect_fn overrides "
+            "the built serve step — the custom fn runs as given (float "
+            "unless it quantizes itself)")
+        int8 = False
+    quant = _int8_quant_tree(cfg, model.to(dev)) if int8 else None
     fwd = None
     if detect_fn is None:
         if cfg.model.family == "yolov5" and getattr(cfg.eval, "fused", True):
@@ -782,12 +812,191 @@ def _make_detector(cfg, model: Model, nc: int, *, device=None,
             detect_fn = make_packed_serve_step(
                 model, nc, conf_thres=kw["conf_thres"],
                 iou_thres=kw["iou_thres"], max_det=kw.get("max_det", 300),
-                multi_label=False, anchors=_cfg_anchors(cfg), device=dev)
+                multi_label=False, anchors=_cfg_anchors(cfg), device=dev,
+                quant=quant)
         else:
             fwd = forward_for_eval(model, nc, anchors=_cfg_anchors(cfg),
-                                   device=dev)
+                                   device=dev, quant=quant)
     return Detector(detect_fn, nc, cfg.model.img_size, forward_fn=fwd,
                     device=dev, **kw)
+
+
+def _quant_cache_paths(tree: Dict) -> Dict[str, np.ndarray]:
+    """Flatten a quant tree to {'/'-path: numpy array} for npz I/O."""
+    flat = {}
+
+    def _walk(t, path):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                _walk(v, path + (k,))
+            else:
+                flat["/".join(path + (k,))] = v.cpu().numpy()
+    _walk(tree, ())
+    return flat
+
+
+def _params_fingerprint(model: Model) -> np.ndarray:
+    """A cheap identity of a checkpoint for the quant cache: the count of
+    parameters and BatchNorm statistics (the reference's params and
+    batch_stats leaves, all of which the fold reads) and the float64 sum of
+    their absolute values."""
+    leaves = [t for n, t in model.state_dict().items()
+              if not n.endswith("num_batches_tracked")]
+    s = sum(float(t.detach().double().abs().sum()) for t in leaves)
+    return np.asarray([len(leaves), s], np.float64)
+
+
+def _int8_calib_spec(cfg: ExperimentConfig):
+    """The validated int8 knobs of ``cfg.test``: (mode, act_clip, skip
+    prefixes, their tag for the cache key)."""
+    from heltondetection_tpu_torch.ops.quant import YOLO_INT8_SKIP_PRESETS
+    mode = getattr(cfg.test, "int8_mode", "layer")
+    if mode not in ("layer", "flow"):
+        raise ValueError(
+            f"test.int8_mode={mode!r} — expected 'layer' or 'flow'")
+    act_clip = getattr(cfg.test, "int8_act_clip", "p999")
+    if act_clip not in ("p999", "amax"):
+        raise ValueError(
+            f"test.int8_act_clip={act_clip!r} — expected 'p999' or 'amax'")
+    skip = getattr(cfg.test, "int8_skip", None)
+    tail = getattr(cfg.test, "int8_float_tail", "balanced")
+    if skip is not None:
+        # keyed on the list itself: the reference keys an explicit list by
+        # its length, so two lists of one length share a stale cache
+        skip = tuple(skip)
+        tail = "skip" + json.dumps(list(skip))
+    elif cfg.model.family == "yolov5":
+        if tail not in YOLO_INT8_SKIP_PRESETS:
+            raise ValueError(
+                f"test.int8_float_tail={tail!r} — expected one of "
+                f"{sorted(YOLO_INT8_SKIP_PRESETS)}")
+        skip = YOLO_INT8_SKIP_PRESETS[tail]
+    else:
+        # the float-tail presets cover the YOLO family; two-stage models
+        # keep the stem float
+        skip = ("backbone/stem_conv",)
+        tail = "rcnn-default"
+    if mode == "flow" and cfg.model.family != "yolov5":
+        _log.warning("test.int8_mode='flow' is yolov5-only — using the "
+                     "per-layer W8A8 mode for %s", cfg.model.family)
+        mode = "layer"
+    return mode, act_clip, skip, tail
+
+
+def _load_quant_cache(path: str, calib_id: str, fp: np.ndarray,
+                      device) -> Optional[Dict]:
+    """The tree cached at ``path`` if it was made for ``calib_id`` and
+    this checkpoint, else None (logged)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        z = np.load(path, allow_pickle=False)
+        if (str(z["__calib_id__"]) != calib_id
+                or not np.allclose(z["__fingerprint__"], fp)):
+            _log.info("int8 PTQ: cache at %s is stale (checkpoint or "
+                      "calibration set changed) — recalibrating", path)
+            return None
+        tree: Dict = {}
+        for key in z.files:
+            if key.startswith("__"):
+                continue
+            node = tree
+            *parts, leaf = key.split("/")
+            for p in parts:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.from_numpy(z[key]).to(device)
+    except (OSError, ValueError, KeyError) as e:
+        _log.warning("int8 PTQ: unreadable cache %s (%s) — recalibrating",
+                     path, e)
+        return None
+    _log.info("int8 PTQ: loaded cached quant tree %s", path)
+    return tree
+
+
+def _int8_quant_tree(cfg: ExperimentConfig, model: Model) -> Dict:
+    """Calibrate ``model`` (weights loaded, on its device) and build its
+    quant tree (``ops/quant.py``) on the first ``cfg.test.int8_calib``
+    calibration images, letterboxed as serving letterboxes them: from
+    ``cfg.test.int8_calib_dir`` (a directory of images, for hosts without
+    the val split) or else the val set. ``test.int8_mode`` picks the
+    per-layer or the flow tree (YOLOv5), ``int8_float_tail`` or an
+    explicit ``int8_skip`` what stays float, ``int8_act_clip`` the clip.
+
+    The tree is cached at ``{work_dir}/{name}/int8_quant.npz``, keyed by a
+    calibration id (mode, skip list, clip, size and the images) and a
+    fingerprint of the weights, so a later call for the same checkpoint
+    and settings skips the calibration."""
+    import hashlib
+
+    from heltondetection_tpu_torch.data.letterbox import letterbox_np
+    from heltondetection_tpu_torch.data.readers import IMG_EXTS, imread_rgb
+    from heltondetection_tpu_torch.ops.quant import (quantize_rcnn,
+                                                     quantize_yolo,
+                                                     quantize_yolo_flow)
+    mode, act_clip, skip, tail = _int8_calib_spec(cfg)
+    n_want = int(getattr(cfg.test, "int8_calib", 32))
+    calib_dir = getattr(cfg.test, "int8_calib_dir", None)
+    head = f"{mode}:{tail}:{act_clip}:sz{cfg.model.img_size}"
+    if calib_dir:
+        files = sorted(
+            os.path.join(calib_dir, f) for f in os.listdir(calib_dir)
+            if os.path.splitext(f)[1].lower() in IMG_EXTS)[:n_want]
+        if not files:
+            raise ValueError(
+                f"test.int8_calib_dir={calib_dir!r} holds no images")
+        # the files' identities, so replacing an image in place invalidates
+        # the cached scales
+        h = hashlib.sha256()
+        for f in files:
+            st = os.stat(f)
+            h.update(f"{os.path.basename(f)}:{st.st_mtime_ns}:"
+                     f"{st.st_size};".encode())
+        calib_id = (f"{head}:dir:{calib_dir}:{len(files)}:"
+                    f"{h.hexdigest()[:16]}")
+        n = len(files)
+
+        def load(i):
+            return imread_rgb(files[i])
+    else:
+        if not cfg.data.val_ann:
+            raise ValueError("test.int8 needs a val set (data.val_ann) or "
+                             "test.int8_calib_dir to calibrate")
+        ds = build_dataset(cfg.data, "val")
+        n = min(n_want, len(ds))
+        if n == 0:
+            raise ValueError("test.int8 needs a non-empty val set (or "
+                             "test.int8_calib_dir) to calibrate")
+        calib_id = f"{head}:val:{n}"
+
+        def load(i):
+            return ds.load(i)["image"]
+
+    dev = next(model.parameters()).device
+    cache_path = os.path.join(cfg.work_dir, cfg.name, "int8_quant.npz")
+    fp = _params_fingerprint(model)
+    tree = _load_quant_cache(cache_path, calib_id, fp, dev)
+    if tree is not None:
+        return tree
+    no_boxes = np.zeros((0, 4), np.float32)
+    imgs = np.stack([letterbox_np(load(i), no_boxes, cfg.model.img_size)[0]
+                     for i in range(n)]).astype(np.uint8)
+    _log.info("int8 PTQ: calibrating on %d images (%s)", n, calib_id)
+    if cfg.model.family != "yolov5":
+        quantize = quantize_rcnn
+    elif mode == "flow":
+        quantize = quantize_yolo_flow
+    else:
+        quantize = quantize_yolo
+    tree = quantize(model, imgs, skip=skip, act_clip=act_clip)
+    try:
+        os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+        np.savez(cache_path, __fingerprint__=fp,
+                 __calib_id__=np.asarray(calib_id),
+                 **_quant_cache_paths(tree))
+        _log.info("int8 PTQ: cached quant tree at %s", cache_path)
+    except OSError as e:   # a read-only work_dir: serve from memory only
+        _log.warning("int8 PTQ: could not cache quant tree (%s)", e)
+    return tree
 
 
 def run_test(cfg: ExperimentConfig, source: str,

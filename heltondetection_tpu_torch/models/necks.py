@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 
 from heltondetection_tpu_torch.models.common import (C3, CastConv2d,
-                                                     ConvBnAct, depth,
+                                                     ConvBnAct, depth, q_cat,
                                                      scaled, upsample2x)
 
 
@@ -26,7 +26,8 @@ class PAFPNv5(nn.Module):
 
     Input (c3, c4, c5) from CSPDarknet (or the widths ``in_channels`` of
     another backbone); output (p3, p4, p5) with channels (256w, 512w,
-    1024w).
+    1024w). Its four joins are :func:`q_cat`, which keeps the int8 flow's
+    activations int8 through them (a plain concat otherwise).
     """
 
     def __init__(self, depth_multiple: float = 0.33,
@@ -48,11 +49,11 @@ class PAFPNv5(nn.Module):
     def forward(self, feats):
         c3, c4, c5 = feats
         lat5 = self.lat5(c5)
-        t4 = self.td4(torch.cat([upsample2x(lat5), c4], dim=1))
+        t4 = self.td4(q_cat([upsample2x(lat5), c4]))
         lat4 = self.lat4(t4)
-        p3 = self.td3(torch.cat([upsample2x(lat4), c3], dim=1))
-        p4 = self.bu4(torch.cat([self.bu3(p3), lat4], dim=1))
-        p5 = self.bu6(torch.cat([self.bu5(p4), lat5], dim=1))
+        p3 = self.td3(q_cat([upsample2x(lat4), c3]))
+        p4 = self.bu4(q_cat([self.bu3(p3), lat4]))
+        p5 = self.bu6(q_cat([self.bu5(p4), lat5]))
         return p3, p4, p5
 
 

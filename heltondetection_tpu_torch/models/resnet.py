@@ -7,7 +7,9 @@ BatchNorm uses torchvision's eps 1e-5 and momentum 0.1 (flax 0.9). Module
 names follow the reference's flax scopes (``stem_conv``, ``stem_bn``,
 ``layer{s}_{b}.conv1/bn1/…/ds_conv/ds_bn``), so ``utils.convert`` maps its
 weights by name and freezing can match the same prefixes. Tensors are NCHW
-and the convs cast their float32 weights to the input's dtype.
+and the convs cast their float32 weights to the input's dtype. Each
+conv/BN pair runs through ``models.common.conv_bn``, the W8A8 hooks of the
+reference's ``_cbn``.
 
 ``norm_eval``, ``frozen_stages``, ``remat`` and ``dropblock_p`` shape
 training only, as in the reference: BatchNorm on running statistics in
@@ -26,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from heltondetection_tpu_torch.models.common import (BatchNorm2d, autopad,
-                                                     checkpointed)
+                                                     checkpointed, conv_bn)
 from heltondetection_tpu_torch.models.dropblock import DropBlock
 
 RESNET_STAGES = {
@@ -44,11 +46,6 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
 
 def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=1e-5, momentum=0.1)
-
-
-def _conv_bn(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor):
-    x = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
-    return bn(x)
 
 
 class Bottleneck(nn.Module):
@@ -70,10 +67,10 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        y = F.relu(_conv_bn(self.conv1, self.bn1, x))
-        y = F.relu(_conv_bn(self.conv2, self.bn2, y))
-        y = _conv_bn(self.conv3, self.bn3, y)
-        res = _conv_bn(self.ds_conv, self.ds_bn, x) if self.downsample else x
+        y = F.relu(conv_bn(self, "conv1", x))
+        y = F.relu(conv_bn(self, "conv2", y))
+        y = conv_bn(self, "conv3", y)
+        res = conv_bn(self, "ds_conv", x) if self.downsample else x
         return F.relu(y + res)
 
 
@@ -93,9 +90,9 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        y = F.relu(_conv_bn(self.conv1, self.bn1, x))
-        y = _conv_bn(self.conv2, self.bn2, y)
-        res = _conv_bn(self.ds_conv, self.ds_bn, x) if self.downsample else x
+        y = F.relu(conv_bn(self, "conv1", x))
+        y = conv_bn(self, "conv2", y)
+        res = conv_bn(self, "ds_conv", x) if self.downsample else x
         return F.relu(y + res)
 
 
@@ -142,7 +139,7 @@ class ResNet(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         remat = self.remat and self.training and torch.is_grad_enabled()
-        x = F.relu(_conv_bn(self.stem_conv, self.stem_bn, x))
+        x = F.relu(conv_bn(self, "stem_conv", x))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.frozen_stages >= 1:
             x = x.detach()

@@ -19,7 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from heltondetection_tpu_torch.device import resolve_device
-from heltondetection_tpu_torch.models.common import init_weights, scaled
+from heltondetection_tpu_torch.models.common import (init_weights, q_dequant,
+                                                     scaled)
 from heltondetection_tpu_torch.models.cspdarknet import VARIANTS, CSPDarknet
 from heltondetection_tpu_torch.models.necks import PAFPNv5
 from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
@@ -93,6 +94,9 @@ class YOLOv5(nn.Module):
     def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         feats = self.neck(self.backbone(x)[-3:])
+        # the int8 flow's head-boundary guard: a tree whose last neck convs
+        # emit int8 still hands the (float) head float features
+        feats = [q_dequant(f, self.dtype) for f in feats]
         a = self.num_anchors
         outs = []
         for i, f in enumerate(feats):

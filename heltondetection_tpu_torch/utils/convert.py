@@ -133,3 +133,33 @@ def load_adamw_state(opt_state: Any, optimizer, model: torch.nn.Module
     sched.last_epoch = count
     for group, base in zip(optimizer.opt.param_groups, sched.base_lrs):
         group["lr"] = base * sched.lr_lambdas[0](count)
+
+
+def from_jax_quant_tree(qtree: Any) -> Dict[str, Any]:
+    """A reference quant tree (``heltondetection_tpu/ops/quant.py``,
+    numpy or jax leaves) → the port's (``ops/quant.py``): ``w_q`` and
+    ``w_f`` HWIO → OIHW, scales and biases as they are, and the ResNet
+    pairs' flat ``convN_w_q``/``convN_out_scale``/… keys nested under
+    ``convN``. Leaves keep their dtype (int8 weights, float32 scales)."""
+    fields = ("w_q", "out_scale", "bias", "inv_in_scale")
+
+    def leaf(name: str, v) -> torch.Tensor:
+        arr = np.asarray(v)
+        if name in ("w_q", "w_f"):
+            arr = arr.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.array(arr, order="C"))
+
+    def walk(node) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for k, v in node.items():
+            if hasattr(v, "items"):
+                out[k] = walk(v)
+                continue
+            pair = next((f for f in fields if k.endswith("_" + f)), None)
+            if pair is not None:
+                out.setdefault(k[:-len(pair) - 1], {})[pair] = leaf(pair, v)
+            else:
+                out[k] = leaf(k, v)
+        return out
+
+    return walk(qtree)

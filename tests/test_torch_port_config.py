@@ -198,8 +198,20 @@ def test_load_detector_matches_jax_make_detector(tiny_variant, tmp_path):
     unfused = runner.load_detector(unfused_cfg, ckpt=ckpt_dir, device="cpu")
     ub, us, uc = unfused.detect_image(frames[2])
     assert len(us) > 0 and np.isfinite(ub).all()
-    with pytest.raises(NotImplementedError, match="A15"):
-        runner.load_detector(cfg, ckpt=ckpt_dir, device="cpu", int8=True)
+    # int8=True serves the quantized step, calibrated on a directory of
+    # frames; the float Detector's dets stay as they were
+    import cv2
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(calib / f"{i}.png"), f[..., ::-1])
+    int8_cfg = dataclasses.replace(cfg, test=dataclasses.replace(
+        cfg.test, int8_calib_dir=str(calib)))
+    q = runner.load_detector(int8_cfg, ckpt=ckpt_dir, device="cpu",
+                             int8=True)
+    assert (pathlib.Path(cfg.work_dir) / cfg.name / "int8_quant.npz").exists()
+    qb, qs, qc = q.detect_image(frames[2])
+    assert np.isfinite(qb).all() and len(qs) == len(qc)
 
 
 def test_not_ported_parts_raise_by_name(tmp_path):

@@ -141,8 +141,10 @@ def test_export_yolov5_roundtrip_through_the_cli(tmp_path, monkeypatch):
     model.pt2 in the working directory (its default name); loaded, its
     dets equal the eager serving function's bit for bit and the
     reference's exported program's within the stated tolerances, and its
-    graph holds one ``nms_mask`` op. ``test.int8`` still raises, naming
-    A15."""
+    graph holds one ``nms_mask`` op. With ``test.int8`` (calibrated on a
+    directory of frames) it exports the quantized program: its int8
+    products are ``_int_mm`` nodes beside the one ``nms_mask`` op, and
+    loaded it equals the eager int8 serving function bit for bit."""
     jmodel, variables = jax_variables(nc=NC, seed=3, head_scale=0.25)
     monkeypatch.setitem(p_csp.VARIANTS, "t", (0.33, WIDTH))
     path = tmp_path / "cfg.py"
@@ -174,10 +176,26 @@ def test_export_yolov5_roundtrip_through_the_cli(tmp_path, monkeypatch):
         assert g.dtype == e.dtype and torch.equal(g, e)
     assert got[0].shape == (1, 300, 4)
     _held_to_reference(got, want, 0.1, 4e-3)
-    cfg.test.int8 = True
-    with pytest.raises(NotImplementedError, match="A15"):
-        E.export_model(cfg, port_model(variables, NC),
-                       str(tmp_path / "q.pt2"), device="cpu")
+    import cv2
+    from heltondetection_tpu_torch.engine.runner import _int8_quant_tree
+    from heltondetection_tpu_torch.ops.quant import attach_quant
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    cv2.imwrite(str(calib / "0.png"), x[0][..., ::-1])
+    cfg.test.int8, cfg.test.int8_calib_dir = True, str(calib)
+    qpath = str(tmp_path / "q.pt2")
+    program = E.export_model(cfg, port_model(variables, NC), qpath,
+                             device="cpu")
+    assert _kernel_ops(program) == [OPS.nms_mask.default]
+    assert torch.ops.aten._int_mm.default in {
+        n.target for n in program.graph.nodes}
+    got = E.load_serving_fn(qpath)(torch.from_numpy(x))
+    pm = port_model(variables, NC)
+    with torch.no_grad():       # the tree from the export's cache
+        eager = E.yolov5_serve(NC, conf_thres=0.3, iou_thres=0.65)(
+            attach_quant(pm, _int8_quant_tree(cfg, pm)), torch.from_numpy(x))
+    for g, e in zip(got, eager):
+        assert g.dtype == e.dtype and torch.equal(g, e)
 
 
 def test_export_faster_rcnn_roundtrip(tmp_path):
@@ -204,3 +222,35 @@ def test_export_faster_rcnn_roundtrip(tmp_path):
     for g, e in zip(got, eager):
         assert g.dtype == e.dtype and torch.equal(g, e)
     _held_to_reference(got, want.result(), 2e-3, 1e-4)
+
+
+def test_export_faster_rcnn_int8_roundtrip(tmp_path):
+    """export_model of the small FasterRCNN with ``test.int8``
+    (calibrated on a directory of frames): the quantized program, its int8
+    products ``_int_mm`` nodes beside the six ``nms_mask`` ops, loaded
+    equal to the eager int8 serving function bit for bit."""
+    import cv2
+    from heltondetection_tpu_torch.engine.runner import _int8_quant_tree
+    from heltondetection_tpu_torch.ops.quant import attach_quant
+    _, _, model = small_rcnn()
+    x = small_frame()[None]
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    cv2.imwrite(str(calib / "0.png"), x[0][..., ::-1])
+    cfg = p_base.ExperimentConfig(
+        work_dir=str(tmp_path / "runs"),
+        model=p_base.ModelConfig(family="faster_rcnn", dtype="float32",
+                                 **SMALL_CFG),
+        test=p_base.TestConfig(int8=True, int8_calib_dir=str(calib)))
+    path = str(tmp_path / "rcnn_int8.pt2")
+    program = E.export_model(cfg, model, path, device="cpu")
+    assert _kernel_ops(program) == [OPS.nms_mask.default] * 6
+    assert torch.ops.aten._int_mm.default in {
+        n.target for n in program.graph.nodes}
+    got = E.load_serving_fn(path)(torch.from_numpy(x))
+    with torch.no_grad():       # the tree from the export's cache
+        eager = E.faster_rcnn_serve(
+            attach_quant(model, _int8_quant_tree(cfg, model)),
+            torch.from_numpy(x))
+    for g, e in zip(got, eager):
+        assert g.dtype == e.dtype and torch.equal(g, e)

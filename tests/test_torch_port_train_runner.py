@@ -303,7 +303,9 @@ def test_not_ported_train_options_raise(change, item, tmp_path):
 
 def test_not_ported_eval_and_data_parts_raise(tmp_path):
     """``dump_json`` writes the dets as a COCO results list (ported with
-    the eval artifacts); ``eval.int8`` still raises, naming A15."""
+    the eval artifacts); ``eval.int8``, which raised until int8 was
+    ported, now scores the int8 program and caches its quant tree beside
+    the run (tests/test_torch_port_int8.py holds it to the reference)."""
     val_ann, val_imgs = build_coco_dataset(str(tmp_path / "val"),
                                            n_images=2, seed=2)
     cfg = p_base.ExperimentConfig(
@@ -320,5 +322,7 @@ def test_not_ported_eval_and_data_parts_raise(tmp_path):
     assert set(dets[0]) == {"image_id", "category_id", "bbox", "score"}
     assert {d["category_id"] for d in dets} <= {10, 11, 12, 13}
     cfg.eval.int8 = True
-    with pytest.raises(NotImplementedError, match="A15"):
-        runner.run_eval(cfg, device="cpu")
+    stats = runner.run_eval(cfg, model.state_dict(), model, verbose=False,
+                            device="cpu")
+    assert 0.0 <= stats["AP"] <= 1.0
+    assert (tmp_path / cfg.name / "int8_quant.npz").exists()
