@@ -262,7 +262,33 @@ fails:
          nms_mask 1 (YOLOv5) or 6 (FasterRCNN) times a call;
       4. ops/letterbox.letterbox_image on the card against the CPU
          (downscale, upscale, 1:1; uint8 within one grey level, float32
-         within 1e-2) with equal letterbox parameters;
+         within 1e-3) with equal letterbox parameters;
+   k. the native loader and run_train's two hooks (run after phase 5, so
+      that its profiler session precedes none of phase 5's):
+      1. (run with phase 2's builds, before any train path asks for the
+         library) g++'s version, whether <opencv2/imgproc.hpp> and
+         <jpeglib.h> compile, and the build of native/loader_core.cpp
+         (seconds or the compiler's error). Missing headers: the loader is
+         recorded as not buildable on this machine and the run goes on
+         (training and eval take the Python pipelines, and say why in the
+         log); headers present and the build failing fails the run;
+      2. only where it built: NativeTrainPipeline against TrainPipeline at
+         640² and NativeDeviceAugPipeline against DeviceAugPipeline at
+         1280² (phase 4f.1's frame sizes), host img/s over 3 batches of 16
+         with 8 workers, in turns; each native batch equal bit for bit to
+         the same pipeline's on a one-thread pool; then a two-step
+         train_from_datasets of yolov5_s_coco_640 and of
+         faster_rcnn_pafpn_decoupled_coco_832 (B=16) on the native loader
+         with the in-loop eval, the launch counts reset before each and
+         read after (nms_fixpoint; nms_mask and iou_matrix), and each
+         run's loader-wait share;
+      3. yolov5_s_coco_640 (B=16, two steps, no val set) through
+         train_from_datasets three times: plain (its loader choice must
+         match 4k.1's build), with HELTON_PROFILE_DIR (the trace must name
+         CUDA kernels; its size and the run's time against the plain
+         run's are recorded), and with HELTON_DEBUG_NANS and a NaN in the
+         stem's weight, which must raise FloatingPointError naming epoch 0
+         and step 0 or 1 and leave anomaly mode off;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -287,8 +313,8 @@ fails:
    so library_ms is null for every kernel.
 
 The lines before the last are the serve, eval, serving, train,
-train_configs, rcnn, rcnn_train, export_test_artifacts and int8 lines,
-the
+train_configs, rcnn, rcnn_train, export_test_artifacts, int8 and
+native_loader lines, the
 kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
 evals' launches as launches_train_eval and
 launches_train_eval_visdrone_1280 and run_test's as
@@ -300,7 +326,9 @@ and launches_int8_export, with its largest N; nms_fixpoint's the int8
 serve steps' as launches_int8_serve; iou_matrix's FasterRCNN training
 launches as launches_rcnn_train and its times at the assigner's shape as
 rcnn_assigner; each entry's op_ms the time through its custom op and
-through its wrapper), and the card's nvidia-smi line; the last line is
+through its wrapper; launches_native_loader_run_train the launches of
+phase 4k.2's runs, null where the loader core did not build), and the
+card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -651,14 +679,16 @@ class SynthFrames:
     uint8 noise frames of mixed sizes, each with 2–8 filled rectangles, one
     colour per class, as its boxes. No image decoder is needed."""
 
-    def __init__(self, n: int, seed: int, num_classes: int = 80):
+    def __init__(self, n: int, seed: int, num_classes: int = 80,
+                 sizes=None):
         rng = np.random.default_rng(seed)
+        sizes = sizes or TRAIN_SIZES
         self.num_classes = num_classes
         self.label_to_cat = {i: i for i in range(num_classes)}
         palette = rng.integers(0, 256, (num_classes, 3)).astype(np.uint8)
         self.frames = []
         for i in range(n):
-            h, w = TRAIN_SIZES[i % len(TRAIN_SIZES)]
+            h, w = sizes[i % len(sizes)]
             img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
             k = int(rng.integers(2, 9))
             wh = rng.uniform(0.05, 0.45, (k, 2)) * [w, h]
@@ -3318,9 +3348,9 @@ def int8_entry_phase(dev, smi: str, model, rmodel, work: str) -> dict:
 def letterbox_device_phase(dev) -> dict:
     """Phase 4j.4: ops/letterbox.letterbox_image on the card against the
     CPU: a downscale (1080x1920), an upscale (333x500) and the 1:1 case,
-    uint8 and float32, within 1e-2 grey levels (float32: the two devices'
-    antialiased bilinear kernels compute their filter weights and sums in
-    another order; 3.6e-3 measured) or one level (uint8, whose cast
+    uint8 and float32, within 1e-3 grey levels (float32; an enlargement
+    takes the plain bilinear, since CUDA's antialiased kernel summed its
+    taps 3.6e-3 away from the CPU's there) or one level (uint8, whose cast
     truncates a float32 value the two devices may round apart)."""
     import torch
     from heltondetection_tpu_torch.ops.letterbox import letterbox_image
@@ -3328,7 +3358,7 @@ def letterbox_device_phase(dev) -> dict:
     out = {}
     for hw in ((1080, 1920), (333, 500), (480, 640)):
         img = rng.integers(0, 256, hw + (3,)).astype(np.uint8)
-        for dt, tol in ((torch.uint8, 1.0), (torch.float32, 1e-2)):
+        for dt, tol in ((torch.uint8, 1.0), (torch.float32, 1e-3)):
             t = torch.from_numpy(img).to(dt)
             host, hp = letterbox_image(t, 640, 640)
             card, cp = letterbox_image(t.to(dev), 640, 640)
@@ -3340,6 +3370,270 @@ def letterbox_device_phase(dev) -> dict:
                                      f"card: max err {err}, params "
                                      f"equal {same_p}")
     log(f"letterbox_image card vs CPU, max abs err: {out}")
+    return out
+
+
+# phase 4k: the native C++ loader (native/loader_core.cpp,
+# data/native_loader.py) and run_train's two environment hooks. The loader
+# needs g++ with the OpenCV (core, imgproc) and libjpeg development files;
+# a machine without those headers cannot build it, and the runner then
+# takes the Python pipelines, which 4k records and goes on. Headers present
+# and the build failing is a fault: the run fails.
+LOADER_HEADERS = ("opencv2/imgproc.hpp", "jpeglib.h")
+NATIVE_BATCH = 16              # B of every 4k.2 run
+NATIVE_TRAIN_SIZE = 640        # NativeTrainPipeline against TrainPipeline
+NATIVE_AUG_SIZE = 1280         # NativeDeviceAugPipeline against
+# DeviceAugPipeline, on frames of phase 4f.1's VisDrone sizes
+NATIVE_TIMED_BATCHES = 3       # batches a pipeline's img/s is taken over
+
+
+def loader_probe() -> dict:
+    """Phase 4k.1: g++'s version, whether each header the loader core
+    includes compiles, and the core's build (seconds, or the compiler's
+    error)."""
+    from heltondetection_tpu_torch import native
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=30).stdout.splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        gxx = f"g++ not runnable: {e}"
+    headers = {}
+    for header in LOADER_HEADERS:
+        try:
+            # <cstdio> first: jpeglib.h uses FILE and size_t undeclared
+            r = subprocess.run(
+                ["g++", "-x", "c++", "-fsyntax-only", *native.loader_cflags(),
+                 "-"], input=f"#include <cstdio>\n#include <{header}>\n",
+                capture_output=True, text=True, timeout=60)
+            errors = [ln for ln in r.stderr.splitlines() if "error" in ln]
+            headers[header] = ("ok" if r.returncode == 0 else
+                               (errors or r.stderr.splitlines() or ["?"])[0])
+        except (OSError, subprocess.SubprocessError) as e:
+            headers[header] = f"g++ not runnable: {e}"
+    t0 = time.perf_counter()
+    lib = native.get_loader_lib()
+    secs = time.perf_counter() - t0
+    out = {"gxx": gxx, "headers": headers, "built": lib is not None,
+           "build_s": secs, "build_error": native.loader_build_error()}
+    missing = [h for h, v in headers.items() if v != "ok"]
+    if lib is None and not missing:
+        raise AssertionError("the OpenCV and libjpeg headers compile but "
+                             "the native loader core did not build: "
+                             f"{out['build_error']}")
+    out["verdict"] = ("built" if lib is not None else
+                      "not buildable on this machine: missing "
+                      + ", ".join(f"<{h}>" for h in missing))
+    log(f"native loader probe: {gxx} | headers {headers} | "
+        f"{out['verdict']} ({secs:.2f} s)"
+        + ("" if lib is not None else f" | {out['build_error']}"))
+    return out
+
+
+def pipeline_img_per_s(pipe, keys, dev) -> float:
+    """Host img/s of a pipeline through TrainLoader.host_batches (8
+    workers, the pool's default thread count for a native pipeline), over
+    NATIVE_TIMED_BATCHES batches of NATIVE_BATCH."""
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    t0 = time.perf_counter()
+    with TrainLoader(pipe, NATIVE_BATCH, num_workers=8, device=dev,
+                     keys=keys) as loader:
+        batches = loader.host_batches(0)
+        n = sum(len(next(batches)[keys[0]])
+                for _ in range(NATIVE_TIMED_BATCHES))
+        batches.close()
+    return n / (time.perf_counter() - t0)
+
+
+def native_loader_phase(dev, smi: str) -> dict:
+    """Phase 4k.2 (only where the loader core built): native against Python
+    img/s at 640² (train) and 1280² (device_aug) in turns, the native
+    batches against the same pipelines on a one-thread pool bit for bit,
+    then a two-step run_train of yolov5_s_coco_640 and of
+    faster_rcnn_pafpn_decoupled_coco_832 on the native loader with their
+    in-loop evals, the launch counts reset before each and read after."""
+    import dataclasses
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.data import native_loader as NL
+    from heltondetection_tpu_torch.data.augment import (DeviceAugPipeline,
+                                                        TrainPipeline)
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    from heltondetection_tpu_torch.engine.runner import train_from_datasets
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    out = {"card": smi, "batch": NATIVE_BATCH}
+    frames = SynthFrames(4 * NATIVE_BATCH, 10)          # phase 4e's frames
+    big = SynthFrames(NATIVE_TIMED_BATCHES * NATIVE_BATCH, 12,
+                      sizes=VISDRONE_SIZES)
+    train_kw = dict(mosaic_p=0.5, flip_p=0.5, max_boxes=128)
+    aug_kw = dict(mosaic_p=0.5, max_boxes=32)
+    pairs = {
+        f"train_{NATIVE_TRAIN_SIZE}": (
+            lambda: TrainPipeline(frames, NATIVE_TRAIN_SIZE, **train_kw),
+            lambda: NL.NativeTrainPipeline(frames, NATIVE_TRAIN_SIZE,
+                                           **train_kw), TrainLoader.KEYS),
+        f"device_aug_{NATIVE_AUG_SIZE}": (
+            lambda: DeviceAugPipeline(big, NATIVE_AUG_SIZE, **aug_kw),
+            lambda: NL.NativeDeviceAugPipeline(big, NATIVE_AUG_SIZE,
+                                               **aug_kw),
+            TrainLoader.DEVICE_AUG_KEYS)}
+    for name, (python, native, keys) in pairs.items():
+        runs = {"python": [], "native": []}
+        for side in ("python", "native", "native", "python"):
+            runs[side].append(pipeline_img_per_s(
+                (python if side == "python" else native)(), keys, dev))
+        pipe = native()
+        idxs = list(range(NATIVE_BATCH))
+        one, many = NL.NativePool(1), NL.NativePool()
+        try:
+            a = pipe.sample_batch(idxs, 0, one)
+            b = pipe.sample_batch(idxs, 0, many)
+        finally:
+            one.close()
+            many.close()
+            pipe.close()
+        same = all(np.array_equal(a[k], b[k]) for k in keys)
+        out[name] = {"img_per_s": runs, "one_thread_equal": same}
+        log(f"{name}: native {runs['native']} img/s, Python "
+            f"{runs['python']} img/s (8 workers, in turns); one-thread "
+            f"pool batch equal: {same}")
+        if not same:
+            raise AssertionError(f"{name}: native batch differs across "
+                                 "thread counts")
+
+    trains = {"yolov5_s_coco_640": (YOLO_CONFIG, SynthFrames(
+                  2 * NATIVE_BATCH, 10), SynthFrames(NATIVE_BATCH, 11),
+                  ("nms_fixpoint",)),
+              "faster_rcnn_pafpn_decoupled_coco_832": (
+                  RCNN_CONFIG, SynthFrames(2 * NATIVE_BATCH, 20),
+                  SynthFrames(8, 21), ("nms_mask", "iou_matrix"))}
+    for name, (config, train_ds, val_ds, kernels) in trains.items():
+        base = rcnn_config(config)
+        records = LogRecords()
+        with tempfile.TemporaryDirectory() as work:
+            cfg = dataclasses.replace(
+                base, name=f"chip_native_{name}", work_dir=work,
+                train=dataclasses.replace(
+                    base.train, epochs=1, batch_size=NATIVE_BATCH,
+                    warmup_epochs=1.0, eval_interval=1, num_workers=8))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                train_from_datasets(cfg, train_ds, val_ds, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(launch_counts)
+            finally:
+                records.close()
+        [choice] = records.field("train_loader")
+        [epoch] = records.field("epoch_stats")
+        evals = records.field("eval_stats")
+        out[f"run_train_{name}"] = {
+            "wall_s": wall, "epoch_s": epoch["seconds"],
+            "loader_wait_s": epoch["loader_wait_s"],
+            "loader_wait_share": epoch["loader_wait_s"] / epoch["seconds"],
+            "steps": epoch["steps"], "pipeline": choice["pipeline"],
+            "launches": counts}
+        log(f"run_train {name} on the native loader: {choice['pipeline']}, "
+            f"{epoch['steps']} steps in {epoch['seconds']:.2f} s, loader "
+            f"wait {epoch['loader_wait_s']:.2f} s; in-loop eval "
+            f"{len(evals)}; launches {counts}")
+        if not choice["native"] or epoch["steps"] != 2 or len(evals) != 1 \
+                or not all(counts[k] > 0 for k in kernels) \
+                or not all(math.isfinite(v) for v in epoch.values()
+                           if isinstance(v, float)):
+            raise AssertionError(f"run_train {name} on the native loader "
+                                 "failed")
+    return out
+
+
+def train_hooks_phase(dev, smi: str) -> dict:
+    """Phase 4k.3: HELTON_PROFILE_DIR and HELTON_DEBUG_NANS on the card, on
+    yolov5_s_coco_640 (B=16, two steps, no val set): a run without either
+    (its loader choice read from the log), the same run traced, whose
+    trace must name CUDA kernels, and a run with a NaN in the stem's weight
+    that must raise FloatingPointError naming epoch 0 and step 0 or 1,
+    with autograd's anomaly mode off again after."""
+    import dataclasses
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.engine.runner import train_from_datasets
+    from heltondetection_tpu_torch.models import common
+    base = rcnn_config(YOLO_CONFIG)
+    train_ds = SynthFrames(2 * NATIVE_BATCH, 10)
+    out = {"card": smi}
+
+    def run(work, env):
+        cfg = dataclasses.replace(
+            base, name="chip_hooks", work_dir=work,
+            train=dataclasses.replace(base.train, epochs=1,
+                                      batch_size=NATIVE_BATCH,
+                                      warmup_epochs=1.0, num_workers=8))
+        records = LogRecords()
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            train_from_datasets(cfg, train_ds, None, device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, records
+        finally:
+            for k in env:
+                del os.environ[k]
+            records.close()
+
+    with tempfile.TemporaryDirectory(dir=RUNS_DIR) as work:
+        plain_s, records = run(os.path.join(work, "plain"), {})
+        [choice] = records.field("train_loader")
+        [epoch_plain] = records.field("epoch_stats")
+        trace_dir = os.path.join(work, "trace")
+        traced_s, records = run(os.path.join(work, "traced"),
+                                {"HELTON_PROFILE_DIR": trace_dir})
+        [epoch_traced] = records.field("epoch_stats")
+        [name] = os.listdir(trace_dir)
+        path = os.path.join(trace_dir, name)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        top = sorted({e["name"][:60] for e in kernels})[:5]
+        out["profile"] = {
+            "trace_bytes": os.path.getsize(path), "events": len(events),
+            "kernel_events": len(kernels), "wall_s_plain": plain_s,
+            "wall_s_traced": traced_s, "epoch_s_plain":
+            epoch_plain["seconds"], "epoch_s_traced": epoch_traced["seconds"]}
+        out["train_loader"] = choice
+        log(f"HELTON_PROFILE_DIR: {name}, {os.path.getsize(path)} bytes, "
+            f"{len(events)} events, {len(kernels)} CUDA kernel events (e.g. "
+            f"{top}); run {traced_s:.2f} s traced against {plain_s:.2f} s "
+            f"(epochs {epoch_traced['seconds']:.2f} / "
+            f"{epoch_plain['seconds']:.2f} s); train loader {choice}")
+        if not kernels:
+            raise AssertionError("the profiler trace names no CUDA kernel")
+
+        init = common.init_weights
+
+        def poisoned(model, gen):
+            init(model, gen)
+            with torch.no_grad():
+                next(model.parameters()).view(-1)[0] = float("nan")
+
+        common.init_weights = poisoned
+        try:
+            run(os.path.join(work, "nan"), {"HELTON_DEBUG_NANS": "1"})
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        finally:
+            common.init_weights = init
+    named = raised is not None and any(f"epoch 0 step {s}" in raised
+                                       for s in (0, 1))
+    out["debug_nans"] = {"raised": (raised or "")[:300], "named": named,
+                         "anomaly_after": torch.is_anomaly_enabled()}
+    log(f"HELTON_DEBUG_NANS with a NaN stem weight: {(raised or '')[:160]}"
+        f" | anomaly mode after: {torch.is_anomaly_enabled()}")
+    if not named or torch.is_anomaly_enabled():
+        raise AssertionError("HELTON_DEBUG_NANS did not name the poisoned "
+                             "step")
     return out
 
 
@@ -3404,6 +3698,9 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    # 4k.1 with the builds: the native loader's probe and build, before any
+    # train path asks for the library (it is built once per process)
+    loader = loader_probe()
 
     # 3a. nms_fixpoint vs plain, exact
     rng = np.random.default_rng(0)
@@ -4165,6 +4462,21 @@ def main() -> int:
     m32, m2k = mask_times[(32, 1024)], mask_times[(8, 2048)]
     nms_keys = ("ms", "build_ms", "device_ms", "build_device_ms",
                 "scan_device_ms", "plain_ms")
+    # 4k.2-3. the native loader where it builds, and run_train's two hooks;
+    # after phase 5, so that no profiler session of 4k.3 comes before one
+    # of phase 5's
+    native = {"probe": loader}
+    if native["probe"]["built"]:
+        native.update(native_loader_phase(dev, smi))
+        log(f"[phase 4k.2 done at {time.perf_counter() - t_start:.1f} s]")
+    else:
+        log(f"phase 4k.2 skipped: the native loader is "
+            f"{native['probe']['verdict']}")
+    native["hooks"] = train_hooks_phase(dev, smi)
+    if native["hooks"]["train_loader"]["native"] != native["probe"]["built"]:
+        raise AssertionError("run_train's loader choice disagrees with the "
+                             "loader core's build")
+    log(f"[phase 4k.3 done at {time.perf_counter() - t_start:.1f} s]")
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
@@ -4287,6 +4599,13 @@ def main() -> int:
                  "the RPN assigner's 172887x128) and float store (M % 4 = "
                  "1, 2, 3 and M=1)",
     }]
+    # phase 4k.2's two-step runs on the native loader (null where the
+    # loader core does not build on this machine)
+    for entry in kernels:
+        entry["launches_native_loader_run_train"] = None if not native[
+            "probe"]["built"] else sum(
+                native[k]["launches"][entry["name"]] for k in native
+                if k.startswith("run_train_"))
     serve = {"serve_ms_per_batch_b32": step_ms,
              "serve_ms_per_batch_b32_after_4a": step_ms_early,
              "eager_launch_floor_us": launch_us,
@@ -4320,6 +4639,7 @@ def main() -> int:
         "export": export, "run_test": tested, "artifacts": artifacts,
         "ops_cost": ops_cost}}))
     log(json.dumps({"int8": int8}))
+    log(json.dumps({"native_loader": native}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -151,11 +151,13 @@ def mosaic_placement(i: int, nw: int, nh: int, xc: int, yc: int, s: int
 
 def mosaic_boxes(samples: Sequence[Dict], s: int, xc: int, yc: int,
                  min_box: float = 2.0) -> Tuple[np.ndarray, np.ndarray]:
-    """Box and class transform of :func:`mosaic4`."""
+    """Box and class transform of :func:`mosaic4`; a sample gives its size
+    by its ``image`` or, undecoded, by ``height`` and ``width``."""
     all_boxes, all_cls = [], []
     for i, sample in enumerate(samples[:4]):
         boxes = sample["boxes"]
-        h, w = sample["image"].shape[:2]
+        h, w = sample["image"].shape[:2] if "image" in sample \
+            else (sample["height"], sample["width"])
         scale = min(s / h, s / w)
         nw, nh = int(round(w * scale)), int(round(h * scale))
         x1a, y1a, _, _, x1b, y1b = mosaic_placement(i, nw, nh, xc, yc, s)

@@ -9,9 +9,13 @@ Closing a batch iterator closes the ones it reads from explicitly, so its
 worker threads stop before ``close()`` returns (an interpreter that keeps
 a closed generator's frame alive would otherwise leave them running).
 The reference's ``device_prep`` has no counterpart: the train step divides
-by 255 itself. The native C++ loader is not ported (ROADMAP A6); its users
-get ``TrainPipeline`` or ``DeviceAugPipeline``, as the reference's own
-fallback does.
+by 255 itself.
+
+A pipeline with ``sample_batch`` (``data/native_loader.py``) assembles each
+whole batch in one call on the loader's own C++ pool (:class:`NativePool`,
+made at first use and closed by ``close()``), on one producer thread that
+keeps ``prefetch`` batches ready; any other pipeline's samples fan out over
+``num_workers`` threads.
 """
 
 from __future__ import annotations
@@ -100,22 +104,25 @@ def _stack(samples: List[Dict], keys) -> Dict[str, Any]:
     return out
 
 
+def _padded(samples: List[Dict], pad_to: int) -> List[Dict]:
+    """``samples`` with its last sample repeated with ``img_id=None`` up to
+    ``pad_to``."""
+    while len(samples) < pad_to:
+        pad = dict(samples[-1])
+        pad["img_id"] = None
+        samples.append(pad)
+    return samples
+
+
 def _sample_batches(sample, idx_batches, num_workers: int, prefetch: int,
                     pad_to: int = 0) -> Iterator[List[Dict]]:
     """The samples of each index batch, fanned out over ``num_workers``
     threads at sample granularity with ``prefetch`` batches in flight
-    (serially when ``num_workers`` ≤ 1). ``pad_to`` repeats a short batch's
-    last sample with ``img_id=None`` up to that size."""
-    def padded(samples):
-        while len(samples) < pad_to:
-            pad = dict(samples[-1])
-            pad["img_id"] = None
-            samples.append(pad)
-        return samples
-
+    (serially when ``num_workers`` ≤ 1). ``pad_to`` pads a short batch
+    (:func:`_padded`)."""
     if num_workers <= 1:
         for idxs in idx_batches:
-            yield padded([sample(i) for i in idxs])
+            yield _padded([sample(i) for i in idxs], pad_to)
         return
     pool = ThreadPoolExecutor(num_workers)
     try:
@@ -130,16 +137,32 @@ def _sample_batches(sample, idx_batches, num_workers: int, prefetch: int,
             nxt = next(it, None)
             if nxt is not None:
                 pending.append([pool.submit(sample, i) for i in nxt])
-            yield padded([f.result(timeout=WAIT_S) for f in futs])
+            yield _padded([f.result(timeout=WAIT_S) for f in futs], pad_to)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
 class _LoaderBase:
-    """``close()`` and the context manager, for pipelines that hold
-    resources."""
+    """The native pool of a ``sample_batch`` pipeline, ``close()`` and the
+    context manager."""
+
+    _pool = None
+
+    def _native_pool(self):
+        """The loader's C++ pool of ``num_workers`` threads, made at first
+        use. One per loader: ``hd_pool_run`` is not reentrant, and an
+        abandoned epoch's producer is joined before the next one starts."""
+        if self._pool is None:
+            from heltondetection_tpu_torch.data.native_loader import \
+                NativePool
+            self._pool = NativePool(self.num_workers)
+        return self._pool
 
     def close(self) -> None:
+        """Release the C++ pool and the pipeline's threads."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
         if hasattr(self.pipe, "close"):
             self.pipe.close()
 
@@ -160,7 +183,9 @@ class TrainLoader(_LoaderBase):
     (a ``non_blocking`` upload from pinned memory), so the copy overlaps
     the step still running there. Images stay uint8. ``keys`` names the
     sample keys a batch carries (``DEVICE_AUG_KEYS`` for
-    ``DeviceAugPipeline``)."""
+    ``DeviceAugPipeline`` and ``NativeDeviceAugPipeline``). A pipeline
+    with ``sample_batch`` makes each batch in one call on the loader's
+    C++ pool."""
 
     KEYS = ("image", "gt_boxes", "gt_cls", "gt_mask")
     # the keys of DeviceAugPipeline's samples
@@ -188,6 +213,12 @@ class TrainLoader(_LoaderBase):
         bs = self.batch_size
         idx_batches = [[int(i) for i in order[b * bs:(b + 1) * bs]]
                        for b in range(self.steps_per_epoch())]
+        if hasattr(self.pipe, "sample_batch"):
+            pool = self._native_pool()
+            for idxs in idx_batches:
+                batch = self.pipe.sample_batch(idxs, epoch, pool)
+                yield {k: batch[k] for k in self.keys}
+            return
         with closing(_sample_batches(
                 lambda i: self.pipe.sample(i, epoch), idx_batches,
                 self.num_workers, self.prefetch)) as batches:
@@ -213,7 +244,9 @@ class TrainLoader(_LoaderBase):
 class EvalLoader(_LoaderBase):
     """Fixed-shape eval batches of host numpy arrays (the ``Evaluator``
     uploads them); the last short batch is padded with ``img_id=None``
-    rows, which the evaluator skips."""
+    rows, which the evaluator skips. A pipeline with ``sample_batch``
+    makes each batch in one call on the loader's C++ pool, on a producer
+    thread ``prefetch`` batches ahead."""
 
     KEYS = ("image", "img_id", "scale", "pad_x", "pad_y", "orig_hw")
 
@@ -227,8 +260,15 @@ class EvalLoader(_LoaderBase):
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n, bs = len(self.pipe), self.batch_size
         idx_batches = [list(range(b, min(b + bs, n))) for b in range(0, n, bs)]
-        with closing(_sample_batches(self.pipe.sample, idx_batches,
-                                     self.num_workers, self.prefetch,
-                                     pad_to=bs)) as batches:
+        if hasattr(self.pipe, "sample_batch"):
+            pool = self._native_pool()
+            batches = _prefetched(
+                (_padded(self.pipe.sample_batch(idxs, pool), bs)
+                 for idxs in idx_batches), self.prefetch)
+        else:
+            batches = _sample_batches(self.pipe.sample, idx_batches,
+                                      self.num_workers, self.prefetch,
+                                      pad_to=bs)
+        with closing(batches):
             for samples in batches:
                 yield _stack(samples, self.KEYS)

@@ -6,8 +6,9 @@ A reader maps an index to a raw sample ``{image (H, W, 3) uint8 RGB, boxes
 (N, 4) xyxy float32, classes (N,) int32, iscrowd (N,), img_id, file}``, and
 offers ``num_classes``, ``gt_for_eval(det_eval)`` and ``label_to_cat``.
 COCO keeps its integer image ids; the other readers use the file stem, a
-string, as the reference's do. ``COCODataset.load_encoded`` (the native
-loader's input) is not ported yet (ROADMAP A6). OpenCV, the image decoder,
+string, as the reference's do. ``COCODataset.load_encoded`` gives a
+sample's JPEG bytes undecoded, for the native loader's in-pool decode
+(``data/native_loader.py``, ``decode_in_pool``). OpenCV, the image decoder,
 is imported where an image is read (:func:`imread_rgb`), so importing this
 module does not need it; a reader of in-memory frames needs no decoder at
 all.
@@ -84,10 +85,7 @@ class COCODataset:
         return {"img_id": im["id"], "height": im["height"],
                 "width": im["width"], "file": im["file_name"]}
 
-    def load(self, idx: int) -> Dict:
-        img_id = self.ids[idx]
-        im = self.images[img_id]
-        img = imread_rgb(os.path.join(self.img_dir, im["file_name"]))
+    def _targets(self, img_id) -> Dict:
         boxes, classes, crowd = [], [], []
         for a in self.anns_by_img.get(img_id, []):
             x, y, w, h = a["bbox"]
@@ -97,13 +95,31 @@ class COCODataset:
             classes.append(self.cat_to_label[a["category_id"]])
             crowd.append(a.get("iscrowd", 0))
         return {
-            "image": img,
             "boxes": np.asarray(boxes, np.float32).reshape(-1, 4),
             "classes": np.asarray(classes, np.int32),
             "iscrowd": np.asarray(crowd, np.int32),
             "img_id": img_id,
-            "file": im["file_name"],
+            "file": self.images[img_id]["file_name"],
         }
+
+    def load(self, idx: int) -> Dict:
+        img_id = self.ids[idx]
+        im = self.images[img_id]
+        img = imread_rgb(os.path.join(self.img_dir, im["file_name"]))
+        return {"image": img, **self._targets(img_id)}
+
+    def load_encoded(self, idx: int) -> Dict:
+        """The sample with its file's bytes undecoded (``jpeg``, uint8) and
+        the annotation file's ``height`` and ``width`` in place of
+        ``image``: the input of the native loader's in-pool JPEG decode,
+        which refuses a file whose decoded size disagrees with them. JPEG
+        files only; other formats go through :meth:`load`."""
+        img_id = self.ids[idx]
+        im = self.images[img_id]
+        with open(os.path.join(self.img_dir, im["file_name"]), "rb") as f:
+            buf = np.frombuffer(f.read(), np.uint8)
+        return {"jpeg": buf, "height": im["height"], "width": im["width"],
+                **self._targets(img_id)}
 
     def gt_for_eval(self, det_eval):
         """Register all ground truth (xywh and crowd flags) with a

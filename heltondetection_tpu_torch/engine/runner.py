@@ -17,8 +17,15 @@ video, with the heat-map panels), the eval forward and ``load_detector``
 for both families, each in float or W8A8 int8 (``eval.int8``,
 ``test.int8``: ``_int8_quant_tree`` and ``ops/quant.py``). Parts not
 ported raise ``NotImplementedError`` naming their ROADMAP item: more than
-one device (A14). The native C++ loader (A6) is not ported either: its
-configs train on the Python pipelines, and say so in the log.
+one device (A14).
+
+Where ``train.native_loader`` is set (every config's default) and the C++
+loader core builds (``native/loader_core.cpp``: g++ with the OpenCV and
+libjpeg development files), training and eval take the native pipelines
+of ``data/native_loader.py``; otherwise the Python pipelines of
+``data/augment.py``. The log says which, and why when it is the Python
+one. ``HELTON_PROFILE_DIR`` and ``HELTON_DEBUG_NANS`` act on training as
+in the reference (:func:`train_from_datasets`).
 """
 
 from __future__ import annotations
@@ -239,6 +246,20 @@ def _once(reuse: Dict, key: str, msg: str, *args) -> None:
         _log.info(msg, *args)
 
 
+def _native_pipelines(cfg: ExperimentConfig):
+    """(the ``data.native_loader`` module, None) where
+    ``train.native_loader`` is set and the loader core builds here; else
+    (None, why the Python pipelines are taken)."""
+    if not cfg.train.native_loader:
+        return None, "train.native_loader is off"
+    from heltondetection_tpu_torch.data import native_loader
+    if native_loader.native_loader_available():
+        return native_loader, None
+    from heltondetection_tpu_torch.native import loader_build_error
+    return None, ("the native loader core did not build: "
+                  f"{loader_build_error()}")
+
+
 def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
              verbose: bool = True, dump_json: Optional[str] = None,
              _reuse: Optional[Dict] = None, *, device=None
@@ -343,11 +364,19 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         ds.gt_for_eval(det)
     else:
         det.reset_dets()
-    if cfg.train.native_loader:
-        _once(reuse, "native_note", "the native eval loader is not ported "
-              "(ROADMAP A6); using the Python EvalPipeline")
-    with EvalLoader(EvalPipeline(ds, cfg.model.img_size),
-                    cfg.eval.batch_size,
+    # more than one process (ROADMAP A14) will take this pipeline for its
+    # shard of the val set too: the reference builds it and then ignores it
+    # there, which is not to be copied
+    native, why = _native_pipelines(cfg)
+    if native is not None:
+        pipe = native.NativeEvalPipeline(
+            ds, cfg.model.img_size, decode_in_pool=cfg.train.decode_in_pool)
+        _once(reuse, "loader_note", "eval loader: NativeEvalPipeline (C++)")
+    else:
+        pipe = EvalPipeline(ds, cfg.model.img_size)
+        _once(reuse, "loader_note", "eval loader: the Python EvalPipeline "
+              "(%s)", why)
+    with EvalLoader(pipe, cfg.eval.batch_size,
                     num_workers=cfg.train.num_workers) as loader:
         stats = reuse["evaluator"].run(loader, det_eval=det, verbose=False)
     if dump_json:
@@ -414,24 +443,36 @@ def _check_train_config(cfg: ExperimentConfig) -> None:
             "faster_rcnn configs per size instead)")
 
 
+def _with_xyxy(s: Dict) -> Dict:
+    """``s`` (a sample or a batch) with ``gt_boxes_xyxy`` added."""
+    b = np.asarray(s["gt_boxes"], np.float32)
+    half = b[..., 2:] * np.float32(0.5)
+    s["gt_boxes_xyxy"] = np.concatenate([b[..., :2] - half,
+                                         b[..., :2] + half], axis=-1)
+    return s
+
+
 class _XyxyTargets:
-    """A train pipeline whose samples also carry their cxcywh gt boxes as
-    xyxy pixels (``gt_boxes_xyxy``, float32), made on the host: the targets
-    of FasterRCNN's step."""
+    """A train pipeline whose samples (or, for a native pipeline, whole
+    batches) also carry their cxcywh gt boxes as xyxy pixels
+    (``gt_boxes_xyxy``, float32), made on the host: the targets of
+    FasterRCNN's step."""
 
     def __init__(self, pipe):
         self.pipe = pipe
+        if hasattr(pipe, "sample_batch"):
+            # only then: the loaders take a pipeline with sample_batch for
+            # a native one
+            self.sample_batch = self._sample_batch
 
     def __len__(self):
         return len(self.pipe)
 
     def sample(self, i: int, epoch: int = 0):
-        s = self.pipe.sample(i, epoch)
-        b = np.asarray(s["gt_boxes"], np.float32)
-        half = b[..., 2:] * np.float32(0.5)
-        s["gt_boxes_xyxy"] = np.concatenate([b[..., :2] - half,
-                                             b[..., :2] + half], axis=-1)
-        return s
+        return _with_xyxy(self.pipe.sample(i, epoch))
+
+    def _sample_batch(self, idxs, epoch: int, pool):
+        return _with_xyxy(self.pipe.sample_batch(idxs, epoch, pool))
 
     def close(self) -> None:
         if hasattr(self.pipe, "close"):
@@ -466,7 +507,29 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     state the checkpoints keep, so a resumed run continues its stream;
     ``train.backbone_pretrain`` loads a torchvision ResNet into its
     backbone before the EMA is made. ``device_aug``, ``autoanchor`` and
-    ``multi_scale`` are YOLOv5's. Single process, one device."""
+    ``multi_scale`` are YOLOv5's. Single process, one device. The train
+    pipeline is the native one where ``train.native_loader`` is set and
+    the loader core builds (the log names the pipeline taken, and why when
+    it is the Python one).
+
+    Two environment variables, as in the reference:
+
+    * ``HELTON_PROFILE_DIR``: the epochs run under ``torch.profiler`` (CPU
+      activities, and CUDA's on the card), and its trace is written to
+      ``<dir>/train-<pid>.pt.trace.json`` when training ends, however it
+      ends. The profiler keeps every event of the run in memory: trace a
+      few steps, not a long run.
+    * ``HELTON_DEBUG_NANS``: autograd's anomaly mode is on for the run
+      (the previous setting is restored after), and each step's loss and
+      logged metrics (the gradient norm among them) are checked finite,
+      one host read a step; a NaN raises ``FloatingPointError`` naming the
+      epoch and the step within it. The reference traps NaNs in every
+      jitted op; here a NaN that reaches neither a metric nor autograd's
+      backward stays untrapped where it appears: one that enters only the
+      optimizer's moments (caught a step later, if the update carries it
+      into the loss), the EMA weights or the BatchNorm running statistics
+      (which the train forward does not read), or the in-loop eval's
+      outputs. Without the variable the step makes no extra host read."""
     from heltondetection_tpu_torch.data.augment import (DeviceAugPipeline,
                                                         TrainPipeline)
     from heltondetection_tpu_torch.data.loader import TrainLoader
@@ -497,24 +560,34 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     if tc.autoanchor and not is_rcnn:
         _autoanchor(cfg, train_ds, logger)
 
-    if tc.native_loader:
-        logger.info("the native train loader is not ported (ROADMAP A6, the "
-                    "next slice); using the Python %s",
-                    "DeviceAugPipeline" if device_aug else "TrainPipeline")
+    native, why = _native_pipelines(cfg)
     if device_aug:
-        pipe = DeviceAugPipeline(train_ds, cfg.model.img_size,
-                                 max_boxes=cfg.data.max_boxes, seed=tc.seed,
-                                 mosaic_p=tc.mosaic_p)
+        kw = dict(max_boxes=cfg.data.max_boxes, seed=tc.seed,
+                  mosaic_p=tc.mosaic_p)
+        pipe = (native.NativeDeviceAugPipeline(
+                    train_ds, cfg.model.img_size,
+                    decode_in_pool=tc.decode_in_pool, **kw)
+                if native is not None else
+                DeviceAugPipeline(train_ds, cfg.model.img_size, **kw))
         keys = TrainLoader.DEVICE_AUG_KEYS
     else:
-        pipe = TrainPipeline(train_ds, cfg.model.img_size,
-                             mosaic_p=tc.mosaic_p, hsv=tc.hsv,
-                             flip_p=tc.flip_p, mixup_p=tc.mixup_p,
-                             max_boxes=cfg.data.max_boxes, seed=tc.seed)
+        kw = dict(mosaic_p=tc.mosaic_p, hsv=tc.hsv, flip_p=tc.flip_p,
+                  mixup_p=tc.mixup_p, max_boxes=cfg.data.max_boxes,
+                  seed=tc.seed)
+        pipe = (native.NativeTrainPipeline(
+                    train_ds, cfg.model.img_size,
+                    decode_in_pool=tc.decode_in_pool, **kw)
+                if native is not None else
+                TrainPipeline(train_ds, cfg.model.img_size, **kw))
         keys = TrainLoader.KEYS
-        if is_rcnn:
-            pipe = _XyxyTargets(pipe)
-            keys = ("image", "gt_boxes_xyxy", "gt_cls", "gt_mask")
+    logger.info("train loader: %s%s", type(pipe).__name__,
+                " (C++)" if native is not None else f" (Python: {why})",
+                extra={"train_loader": {"pipeline": type(pipe).__name__,
+                                        "native": native is not None,
+                                        "why": why}})
+    if is_rcnn:
+        pipe = _XyxyTargets(pipe)
+        keys = ("image", "gt_boxes_xyxy", "gt_cls", "gt_mask")
     loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
                          num_workers=tc.num_workers, device=dev, keys=keys)
     steps_per_epoch = loader.steps_per_epoch()
@@ -602,16 +675,38 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
 
     logger.info("training %s: %d epochs x %d steps on %s", cfg.name,
                 cfg.train.epochs, steps_per_epoch, dev)
+    trace_dir = os.environ.get("HELTON_PROFILE_DIR")
+    debug_nans = bool(os.environ.get("HELTON_DEBUG_NANS"))
+    profiler = None
+    if trace_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    anomaly = torch.is_anomaly_enabled()
+    if debug_nans:
+        torch.autograd.set_detect_anomaly(True)
     writer = ckpt_io.CheckpointWriter(cfg.ckpt_dir)
     best_writer = ckpt_io.CheckpointWriter(cfg.best_ckpt_dir, max_to_keep=1)
     try:
         return _train_epochs(cfg, loader, step_fn, state, tb, logger,
-                             start_epoch, val_ds, dev, writer, best_writer)
+                             start_epoch, val_ds, dev, writer, best_writer,
+                             debug_nans)
     finally:
         loader.close()
         for w in (writer, best_writer):
             w.close()
+        if debug_nans:
+            torch.autograd.set_detect_anomaly(anomaly)
         tb.close()
+        if profiler is not None:
+            profiler.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir,
+                                f"train-{os.getpid()}.pt.trace.json")
+            profiler.export_chrome_trace(path)
+            logger.info("profiler trace → %s", path)
 
 
 def _autoanchor(cfg: ExperimentConfig, train_ds, logger) -> None:
@@ -656,8 +751,22 @@ def _device_augment(cfg: ExperimentConfig, dev) -> Callable:
     return augmented
 
 
+def _check_finite(metrics: Dict[str, torch.Tensor], epoch: int,
+                  step: int) -> None:
+    """Raise FloatingPointError naming the epoch, the step of the epoch
+    and the metrics that are not finite (one host read of them all)."""
+    names = list(metrics)
+    ok = torch.isfinite(torch.stack([metrics[k].detach().float().reshape(())
+                                     for k in names])).tolist()
+    bad = [k for k, fine in zip(names, ok) if not fine]
+    if bad:
+        raise FloatingPointError(f"non-finite {', '.join(bad)} at epoch "
+                                 f"{epoch} step {step} (HELTON_DEBUG_NANS)")
+
+
 def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
-                  val_ds, dev, writer, best_writer) -> Dict[str, float]:
+                  val_ds, dev, writer, best_writer, debug_nans: bool = False
+                  ) -> Dict[str, float]:
     # a previous run's best (best.json) seeds the comparison, so a
     # restarted run cannot overwrite a better one-slot snapshot
     best: Dict[str, float] = _read_best_json(cfg)
@@ -675,7 +784,18 @@ def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
             wait += time.perf_counter() - tw
             if batch is None:
                 break
-            state, metrics = step_fn(state, batch)
+            if debug_nans:
+                try:
+                    state, metrics = step_fn(state, batch)
+                except RuntimeError as e:   # anomaly mode's backward check
+                    if "nan values" not in str(e):
+                        raise
+                    raise FloatingPointError(
+                        f"NaN in the backward pass at epoch {epoch} step "
+                        f"{n_steps} (HELTON_DEBUG_NANS): {e}") from e
+                _check_finite(metrics, epoch, n_steps)
+            else:
+                state, metrics = step_fn(state, batch)
             n_steps += 1
             # device sums: one host read per epoch, not one per step
             for k, v in metrics.items():

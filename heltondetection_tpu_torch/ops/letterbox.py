@@ -7,8 +7,11 @@ transforms on the device; counterpart of heltondetection_tpu/ops/letterbox.py.
 * :func:`letterbox_image`: the letterbox of one HWC image as torch ops on
   its device (resize, then pad). The reference's ``jax.image.resize``
   bilinear filter widens with the scale when it shrinks an image
-  (antialiasing); ``F.interpolate(..., antialias=True)`` does the same,
-  and is the plain bilinear (half-pixel centres) when it enlarges one.
+  (antialiasing); ``F.interpolate(..., antialias=True)`` does the same.
+  When it enlarges one the triangle filter is the plain bilinear
+  (half-pixel centres), so an enlargement takes ``antialias=False``:
+  CUDA's antialiased kernel sums its taps otherwise than the CPU's, and
+  the plain one agrees with the CPU.
 
 No path of the package calls it, as in the reference: the serving paths
 letterbox frames on the host (``data/letterbox.py``).
@@ -84,7 +87,7 @@ def letterbox_image(img: torch.Tensor, dst_h: int, dst_w: int,
                     pad_value: float = 114.0
                     ) -> Tuple[torch.Tensor, LetterboxParams]:
     """Letterbox of one (H, W, C) image on its device: a bilinear resize
-    (antialiased when it shrinks, as ``jax.image.resize``) computed in
+    (antialiased only when it shrinks, as ``jax.image.resize``) computed in
     float32, cast back to the image's dtype, centred on a ``pad_value``
     canvas of (dst_h, dst_w, C)."""
     h, w, c = img.shape
@@ -93,7 +96,7 @@ def letterbox_image(img: torch.Tensor, dst_h: int, dst_w: int,
     new_h, new_w = int(round(h * r)), int(round(w * r))
     x = img.permute(2, 0, 1)[None].float()
     resized = F.interpolate(x, size=(new_h, new_w), mode="bilinear",
-                            align_corners=False, antialias=True)[0]
+                            align_corners=False, antialias=r < 1)[0]
     top, left = (dst_h - new_h) // 2, (dst_w - new_w) // 2
     out = torch.full((dst_h, dst_w, c), pad_value, dtype=img.dtype,
                      device=img.device)

@@ -6,7 +6,12 @@ train|eval``).
 ``run_train`` trains a YOLOv5s (full width) at 64² on 8 COCO images
 (batch 4, two epochs, then a resumed third) and is held to the same steps
 driven by hand through the port's public pieces, exactly (one thread, the
-same operations in the same order). The in-loop eval must score each
+same operations in the same order), on the train pipeline ``run_train``
+picks: the native one where the loader core builds (the config's default
+``train.native_loader``); a second, one-epoch run with
+``train.native_loader=False`` pins the Python pipeline the same way. The
+two pipelines' pixels differ by a few grey levels (OpenCV against torch),
+so each side builds the pipeline of its run. The in-loop eval must score each
 call's own weights: the reference's ``summarize`` reused its first
 ``accumulate`` after ``reset_dets`` and so reported stale stats; the port
 does not copy that. TensorBoard is stubbed: importing it costs seconds.
@@ -109,16 +114,19 @@ def trained(tmp_path_factory):
 def _by_hand(cfg, epochs_total, start_state=None, from_epoch=0,
              to_epoch=2):
     """The steps of ``run_train`` driven through the port's public pieces:
-    seeded init, the pipeline and loader, the optimizer over all epochs,
-    the packed train step."""
+    seeded init, the pipeline ``run_train`` picks (native where
+    ``train.native_loader`` is set and the loader core builds) and the
+    loader, the optimizer over all epochs, the packed train step."""
     nc = 4
     model = runner.build_model(cfg.model, nc)
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(memory_format=torch.channels_last)
     ds = runner.build_dataset(cfg.data, "train")
-    loader = TrainLoader(TrainPipeline(ds, SIZE, max_boxes=8,
-                                       seed=cfg.train.seed),
-                         4, seed=cfg.train.seed, num_workers=0, device="cpu")
+    native, _ = runner._native_pipelines(cfg)
+    pipe = (native.NativeTrainPipeline if native is not None
+            else TrainPipeline)(ds, SIZE, max_boxes=8, seed=cfg.train.seed)
+    loader = TrainLoader(pipe, 4, seed=cfg.train.seed, num_workers=0,
+                         device="cpu")
     opt = make_optimizer(model, 1e-3, total_steps=2 * epochs_total,
                          warmup_steps=1)
     model.packed_train = True
@@ -174,6 +182,46 @@ def test_run_train_equals_the_steps_by_hand(trained):
     weights, BatchNorm statistics, EMA and step."""
     cfg = trained["cfg"]
     _assert_state_equal(_by_hand(cfg, 2), _train_state(cfg, 4))
+
+
+def test_run_train_equals_the_steps_by_hand_on_the_python_pipeline(
+        tmp_path, monkeypatch):
+    """``train.native_loader=False`` pins the Python ``TrainPipeline``
+    (logged with the reason): one epoch of ``run_train`` without a val set
+    equals its two steps by hand on that pipeline, exactly."""
+    monkeypatch.setattr(runner, "TBWriter", _TB)
+    cfg = _config(str(tmp_path), name="python", epochs=1)
+    cfg.data.val_ann = ""
+    cfg.train.native_loader = False
+    rec = _Records()
+    log = logging.getLogger("heltondetection_tpu_torch")
+    log.addHandler(rec)
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runner.run_train(cfg, device="cpu")
+        state = _by_hand(cfg, 1, to_epoch=1)
+    finally:
+        torch.set_num_threads(prev)
+        log.removeHandler(rec)
+    assert rec.field("train_loader") == [{
+        "pipeline": "TrainPipeline", "native": False,
+        "why": "train.native_loader is off"}]
+    _assert_state_equal(state, _train_state(cfg, 2))
+
+
+def test_run_train_and_its_eval_take_the_native_pipelines(trained):
+    """Where the loader core builds, ``run_train`` trains on
+    ``NativeTrainPipeline`` and its in-loop ``run_eval`` scores through
+    ``NativeEvalPipeline``; each says so once in the log."""
+    native, why = runner._native_pipelines(trained["cfg"])
+    if native is None:
+        pytest.skip(f"the native loader core does not build here: {why}")
+    first = [r for r in trained["first"] if hasattr(r, "train_loader")]
+    assert [r.train_loader for r in first] == [{
+        "pipeline": "NativeTrainPipeline", "native": True, "why": None}]
+    messages = [r.getMessage() for r in trained["first"]]
+    assert messages.count("eval loader: NativeEvalPipeline (C++)") == 1
 
 
 def test_resume_restores_and_trains_one_more_epoch(trained):
