@@ -289,6 +289,46 @@ fails:
          run's are recorded), and with HELTON_DEBUG_NANS and a NaN in the
          stem's weight, which must raise FloatingPointError naming epoch 0
          and step 0 or 1 and leave anomaly mode off;
+   l. data parallelism (run last): two ranks spawned on this one card
+      (parallel.mesh.run_ranks, gloo named explicitly: NCCL refuses two
+      ranks on one card; gloo's all-reduce takes CUDA tensors), each job
+      with its launch counts reset before and read after in each process,
+      held to one process on the global batch, which runs first (so the
+      two never share the card in time):
+      1. yolov5_s_coco_640 at full width and 640², float32 with TF32 off,
+         global B=16 (8 rows a rank), AdamW at PAR_LR, the checked steps
+         on deterministic algorithms in every process: after step 1 and
+         step 3 every metric and every BatchNorm running statistic within
+         PAR_REL relative of one process's (the statistics with
+         PAR_BN_ABS absolute); the update w_3 - w_0 of the parameters and
+         of the EMA within PAR_UPD_REL of one process's (relative to its
+         norm) over the elements whose gradients agree within PAR_LOOSE at
+         every step, those loose elements at most PAR_LOOSE_MAX of all
+         (one process's gradients and update reach the ranks in a file);
+         both ranks' checksums and statistics bit-equal; the step's ms a
+         rank against one process's by CUDA events; then
+         train_from_datasets (bf16, B=16, one step, its in-loop eval over
+         16 frames, eval batch 8): nms_fixpoint must launch on each rank;
+      2. faster_rcnn_pafpn_decoupled_coco_832 at 832², float32, global
+         B=8 (4 a rank), the sampling generator drawing the global
+         batch's draws and each rank taking its rows: the same checks,
+         the ranks' second stage sampling from their rows of one
+         process's proposals (an NMS over boxes that differ by rounding
+         may keep another proposal; the ranks' own proposals are counted
+         apart); nms_mask 5 and iou_matrix 2 x 4 launches a step a rank;
+      3. run_eval of yolov5_s_coco_640 (the seed-0 weights, bf16, fused)
+         over 64 seeded in-memory frames: each rank its stride, merged at
+         rank 0: stats within PAR_STATS_TOL of one process's, and the
+         merged dets, sorted by (image, class, score), one process's
+         element by element within PAR_DET_TOL (random weights score AP
+         0, so the stats alone would pass a wrong merge); nms_fixpoint
+         launched on each rank;
+      4. yolov5n at 256² (float32) with patience=1: both ranks stop
+         after the second eval (rank 0's decision, broadcast); rank 0
+         resuming that work dir and rank 1 an empty one must both raise
+         the resume disagreement;
+      5. over NCCL, 4l.1's steps, only where there are two cards or more
+         (else the line says "not run: 1 card");
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -313,8 +353,8 @@ fails:
    so library_ms is null for every kernel.
 
 The lines before the last are the serve, eval, serving, train,
-train_configs, rcnn, rcnn_train, export_test_artifacts, int8 and
-native_loader lines, the
+train_configs, rcnn, rcnn_train, export_test_artifacts, int8,
+native_loader and parallel lines, the
 kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
 evals' launches as launches_train_eval and
 launches_train_eval_visdrone_1280 and run_test's as
@@ -327,7 +367,8 @@ serve steps' as launches_int8_serve; iou_matrix's FasterRCNN training
 launches as launches_rcnn_train and its times at the assigner's shape as
 rcnn_assigner; each entry's op_ms the time through its custom op and
 through its wrapper; launches_native_loader_run_train the launches of
-phase 4k.2's runs, null where the loader core did not build), and the
+phase 4k.2's runs, null where the loader core did not build; the
+launches_ddp_* keys phase 4l's launches on each rank), and the
 card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3637,6 +3678,540 @@ def train_hooks_phase(dev, smi: str) -> dict:
     return out
 
 
+# 4l: data parallelism over processes ------------------------------------------
+
+PAR_YOLO_CONFIG = "configs/yolov5_s_coco_640.py"
+PAR_YOLO_BATCH = 16          # global: 8 a rank
+PAR_RCNN_BATCH = 8           # global: 4 a rank
+PAR_STEPS = 3
+PAR_TIMED_STEPS = 4
+PAR_REL = 1e-4               # metrics, BN statistics: relative
+PAR_BN_ABS = 1e-6            # BN statistics: absolute floor
+PAR_STATS_TOL = 1e-6         # the sharded eval's stats
+PAR_DET_TOL = 1e-4           # the sharded eval's dets: px and score
+# the update (w_step3 - w_0, of the parameters and of the EMA) of two ranks
+# against one process's: an element is loose where, at some step, the two
+# gradients differ by over PAR_LOOSE of one process's (a gradient that
+# sums terms which cancel, where another summation order moves it, and
+# Adam moves every element by about the rate whatever its gradient's
+# size); over the others ||d2 - d1|| / ||d1|| within PAR_UPD_REL (each
+# such element's gradients agree within 1 %, so its move does about as
+# well). The loose share stays within PAR_LOOSE_MAX, so a fault cannot
+# hide among the loose elements: a rank that stepped on its own rows'
+# gradient would make nearly every element loose. On an NVIDIA H100 80GB
+# HBM3 at 700 W the loose share was 2.4 % (YOLOv5s) and 23.9 %
+# (FasterRCNN: a random ResNet50 under frozen BatchNorm, whose 4- and
+# 8-image convolutions round otherwise), the update's error 4.4e-4 and
+# 8.1e-4
+PAR_LOOSE = 1e-2
+PAR_UPD_REL = 1e-2
+PAR_LOOSE_MAX = 0.5
+# AdamW's rate in the exactness runs: Adam's first move of an element is
+# the rate times the sign of its gradient whatever the gradient's size, so
+# a last-bit difference of a near-zero gradient (the ranks sum in another
+# order) becomes a move of 2 x the rate; at 1e-4 that moved FasterRCNN's
+# step-3 grad_norm by 1.1e-2 on an H100 80GB HBM3 at 700 W (its random
+# ResNet50 under frozen BatchNorm has no normalization to damp it)
+PAR_LR = 1e-6
+
+
+def par_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def par_batches(kind: str, dev, size: int):
+    """The global batches of the exactness runs, made alike in every
+    process from seeds: PAR_STEPS batches of seeded frames through the
+    train pipeline with augmentation off (FasterRCNN's gt boxes as xyxy)."""
+    import torch
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    b, seed = ((PAR_YOLO_BATCH, 40) if kind == "yolo" else
+               (PAR_RCNN_BATCH, 41))
+    pipe = TrainPipeline(SynthFrames(b * PAR_STEPS, seed), size,
+                         mosaic_p=0.0, hsv=False, flip_p=0.0, max_boxes=32)
+    out = []
+    for s in range(PAR_STEPS):
+        host = [pipe.sample(s * b + i) for i in range(b)]
+        batch = {k: torch.from_numpy(np.stack([h[k] for h in host])).to(dev)
+                 for k in ("image", "gt_boxes", "gt_cls", "gt_mask")}
+        out.append(xyxy_batch(batch) if kind == "rcnn" else batch)
+    return out
+
+
+def par_bn_stats(model):
+    """Every BatchNorm's running mean and variance, concatenated (f64)."""
+    import torch
+    return torch.cat([t.detach().double().reshape(-1)
+                      for n, t in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))]).cpu()
+
+
+def par_flat(tensors):
+    """The tensors, each flattened to float32, as one vector."""
+    import torch
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
+    """4l.1 / 4l.2: PAR_STEPS float32 train steps (TF32 off) of the
+    published config at full width on this process's rows of the global
+    batches (all of them without a process group): the metrics, parameter
+    checksum and BatchNorm statistics after step 1 and step PAR_STEPS, the
+    kernels' launches over the steps, then the step's ms by CUDA events
+    over PAR_TIMED_STEPS more.
+
+    The update: each step's gradients (zeros where a parameter has none)
+    and, after step PAR_STEPS, the change of the parameters and of the EMA
+    since step 0, flat. Without ``ref`` they are returned under
+    ``update`` (one process); with ``ref`` (a file of one process's) the
+    rank holds its own to them (:func:`par_update_check`) and returns the
+    result.
+
+    FasterRCNN's proposals of each checked step are recorded; given
+    ``proposals`` (one process's, the global batch's), the rank's second
+    stage samples from its rows of those instead of its own, as phase
+    4h.3 does card against CPU: an NMS over boxes that differ by rounding
+    (the neck's BatchNorm sums its statistics in another order over two
+    ranks) may keep another proposal, and the second stage would sample
+    another roi. The rank's own proposals are compared apart."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.engine.runner import build_model
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.parallel import mesh as M
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (
+        create_train_state, make_rcnn_train_step, make_train_step)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+    cfg = rcnn_config(PAR_YOLO_CONFIG if kind == "yolo" else RCNN_CONFIG)
+    batches = par_batches(kind, dev, cfg.model.img_size)
+    if kind == "yolo":
+        model = build_model(dataclasses.replace(cfg.model, dtype="float32"),
+                            80)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = model.to(dev, memory_format=torch.channels_last)
+        model.packed_train = True
+        step = make_train_step(YoloLossConfig(
+            num_classes=80, img_size=cfg.model.img_size))
+        rng = None
+    else:
+        x = batches[0]["image"][:2].float() / 255.0
+        model = rcnn_model(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, dtype="float32")),
+            dev, 0, x)
+        step = make_rcnn_train_step()
+        rng = torch.Generator(dev).manual_seed(7)
+    M.replicate(model)       # rank 0's weights on every rank, checked
+    state = create_train_state(model, make_optimizer(
+        model, PAR_LR, total_steps=20, warmup_steps=1), rng=rng)
+    out = {"ranks": M.process_count(), "rank": M.process_index()}
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    w0 = par_flat(params)
+    grads = []
+    from heltondetection_tpu_torch.models import faster_rcnn as rcnn_mod
+    own_proposals, seen = rcnn_mod.generate_proposals, []
+
+    def recorded(*a, **k):
+        got = own_proposals(*a, **k)
+        i = len(seen)
+        seen.append(tuple(t.cpu() for t in got))
+        if proposals is None or i >= len(proposals):
+            return got
+        return tuple(M.rank_rows(t.to(got[0].device))
+                     for t in proposals[i])
+
+    rcnn_mod.generate_proposals = recorded
+    # the checked steps on deterministic algorithms (the process's
+    # setting restored for the timed ones): a CUDA scatter with duplicate
+    # indices (RoIAlign's backward is an index_add_) and some cuDNN
+    # backward kernels sum in another order from run to run, which moved
+    # FasterRCNN's step-3 grad_norm by 6e-5 to 1.7e-4 between runs
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        par_sync(dev)
+        reset_launch_counts()
+        for s, batch in enumerate(batches):
+            state, m = step(state, M.shard_batch(batch))
+            grads.append(par_flat(p.grad if p.grad is not None else
+                                  torch.zeros_like(p) for p in params))
+            if s in (0, PAR_STEPS - 1):
+                out[f"step{s + 1}"] = {
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "checksum": M.state_checksum(model),
+                    "bn": par_bn_stats(model)}
+        par_sync(dev)
+        out["launches"] = dict(launch_counts)
+        update = {"grads": grads, "delta": par_flat(params) - w0,
+                  "ema_delta": par_flat(state.ema[n] for n in names) - w0}
+        if ref is None:
+            out["update"] = {k: ([t.cpu() for t in v] if isinstance(v, list)
+                                 else v.cpu()) for k, v in update.items()}
+        else:
+            out["update_check"] = par_update_check(
+                update, torch.load(ref, map_location=dev), names, params)
+        del grads, update
+    finally:
+        rcnn_mod.generate_proposals = own_proposals
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
+    if kind == "rcnn":
+        out["proposals"] = seen[:PAR_STEPS]
+        if proposals is not None:     # own against one process's, per step
+            out["proposals_own_vs_one_process"] = [{
+                "valid_differ": int((o[2] != M.rank_rows(w[2])).sum()),
+                "boxes_over_0.05px": int(((o[0] - M.rank_rows(w[0])).abs()
+                                          .amax(-1) > 0.05).sum())}
+                for o, w in zip(seen, proposals)]
+    rows = M.shard_batch(batches[-1])
+    out["step_ms"] = cuda_ms(lambda: step(state, rows), PAR_TIMED_STEPS,
+                             warmup=1)
+    out["rows_per_rank"] = int(rows["image"].shape[0])
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_update_check(got: dict, want: dict, names, params) -> dict:
+    """A rank's update against one process's (PAR_LOOSE, PAR_UPD_REL,
+    PAR_LOOSE_MAX): the loose share, the relative error of the parameters'
+    and the EMA's change over the other elements, and (reported, not held)
+    the tensor whose change is furthest off and the three loosest."""
+    import torch
+    loose = torch.zeros_like(want["delta"], dtype=torch.bool)
+    for g, w in zip(got["grads"], want["grads"]):
+        loose |= (g - w).abs() > PAR_LOOSE * w.abs()
+    keep = ~loose
+    out = {"elements": int(loose.numel()),
+           "loose_share": float(loose.float().mean())}
+    for k in ("delta", "ema_delta"):
+        d = (got[k] - want[k])[keep].double()
+        out[f"{k}_rel"] = float(d.norm() / want[k][keep].double().norm())
+    worst, off, shares = (None, 0.0), 0, []
+    for n, p in zip(names, params):
+        sl = slice(off, off + p.numel())
+        off += p.numel()
+        kp = keep[sl]
+        shares.append((float(loose[sl].float().mean()), n, p.numel()))
+        ref = want["delta"][sl][kp].double().norm()
+        if ref > 0:
+            r = float((got["delta"][sl] - want["delta"][sl])[kp].double()
+                      .norm() / ref)
+            if r > worst[1]:
+                worst = (n, r)
+    out["worst_tensor"] = {"name": worst[0], "delta_rel": worst[1]}
+    out["loosest"] = [{"name": n, "elements": k, "loose_share": f}
+                      for f, n, k in sorted(shares, reverse=True)[:3]]
+    return out
+
+
+def par_eval(dev) -> dict:
+    """4l.3: run_eval of yolov5_s_coco_640 (the seed-0 weights, bf16, the
+    fused route) over 64 seeded in-memory frames: on one process the whole
+    set, on each rank its stride (merged at rank 0); stats, dets and the
+    kernels' launches of this process."""
+    import torch
+    from heltondetection_tpu_torch.engine.runner import build_model, run_eval
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.parallel import mesh as M
+    cfg = rcnn_config(PAR_YOLO_CONFIG)
+    cfg.eval.batch_size = 16
+    cfg.train.native_loader = False   # no OpenCV on the card's machine
+    model = build_model(cfg.model, 80)
+    init_weights(model, torch.Generator().manual_seed(0))
+    reuse = {"ds": SynthFrames(64, 13)}
+    par_sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = run_eval(cfg, model.state_dict(), model, verbose=False,
+                     _reuse=reuse, device=dev)
+    par_sync(dev)
+    secs = time.perf_counter() - t0
+    dets = None
+    if M.process_index() == 0:    # the merged dets: (image, class, score)
+        rows = sorted(([d["image_id"], d["category_id"], *d["bbox"],
+                        d["score"]] for d in reuse["det"].to_coco_json(None)),
+                      key=lambda r: (r[0], r[1], -r[6]))
+        dets = np.asarray(rows, np.float64).reshape(-1, 7)
+    return {"stats": stats, "dets": dets, "launches": dict(launch_counts),
+            "seconds": secs}
+
+
+def par_run(dev, work: str) -> dict:
+    """4l.1's in-loop eval: train_from_datasets of yolov5_s_coco_640
+    (bf16, global B=16) on 16 train and 16 val frames, one epoch of one
+    step with its in-loop eval, the launch counts reset before and read
+    after (this process's own)."""
+    import dataclasses
+    import torch
+    from heltondetection_tpu_torch.engine.runner import train_from_datasets
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    cfg = rcnn_config(PAR_YOLO_CONFIG)
+    cfg = dataclasses.replace(
+        cfg, name="chip_par_run", work_dir=work,
+        train=dataclasses.replace(cfg.train, epochs=1, batch_size=16,
+                                  eval_interval=1, ckpt_interval=1,
+                                  native_loader=False, num_workers=8),
+        eval=dataclasses.replace(cfg.eval, batch_size=8))
+    par_sync(dev)
+    reset_launch_counts()
+    records = LogRecords()
+    try:
+        best = train_from_datasets(cfg, SynthFrames(16, 14),
+                                   SynthFrames(16, 15), device=dev)
+        epochs = records.field("epoch_stats")
+    finally:
+        records.close()
+    par_sync(dev)
+    return {"launches": dict(launch_counts), "best_AP": best.get("AP"),
+            "epochs": [{k: e[k] for k in ("steps", "total", "grad_norm")}
+                       for e in epochs]}
+
+
+def par_stop_and_guard(dev, work: str) -> dict:
+    """4l.4, as tests/test_torch_port_parallel.py checks them on the CPU:
+    yolov5n at 256² (float32, B=4 global) with patience=1 for up to 4
+    epochs stops after its second in-loop eval on every rank; then rank 0
+    resumes that work dir and rank 1 an empty one, and both must raise the
+    resume disagreement."""
+    import dataclasses
+    from heltondetection_tpu_torch.configs.base import (EvalConfig,
+                                                        ExperimentConfig,
+                                                        ModelConfig,
+                                                        TrainConfig)
+    from heltondetection_tpu_torch.engine.runner import train_from_datasets
+    from heltondetection_tpu_torch.parallel import mesh as M
+    sizes = [(200, 300), (256, 256), (300, 200)]
+    cfg = ExperimentConfig(
+        name="chip_par_stop", work_dir=work,
+        model=ModelConfig(variant="n", num_classes=4, img_size=256,
+                          dtype="float32"),
+        train=TrainConfig(epochs=4, batch_size=4, lr=1e-3, patience=1,
+                          warmup_epochs=0.5, eval_interval=1,
+                          ckpt_interval=1, native_loader=False,
+                          num_workers=4),
+        eval=EvalConfig(batch_size=2))
+    train_ds = SynthFrames(8, 16, num_classes=4, sizes=sizes)
+    val_ds = SynthFrames(4, 17, num_classes=4, sizes=sizes)
+    records = LogRecords()
+    try:
+        train_from_datasets(cfg, train_ds, val_ds, device=dev)
+        evals = len(records.field("eval_stats"))
+        epochs = len(records.field("epoch_stats"))
+    finally:
+        records.close()
+    guard = None
+    if M.process_count() > 1:
+        other = cfg if M.process_index() == 0 else dataclasses.replace(
+            cfg, work_dir=work + "_empty")
+        other = dataclasses.replace(other, train=dataclasses.replace(
+            cfg.train, epochs=6))
+        try:
+            train_from_datasets(other, train_ds, val_ds, device=dev)
+        except ValueError as e:
+            guard = str(e)
+    return {"evals": evals, "epochs": epochs, "guard": guard}
+
+
+def parallel_rank(rank: int, work: str, jobs, device=None,
+                  proposals=None, refs=None) -> dict:
+    """One rank of phase 4l (spawned by parallel.mesh.run_ranks): the jobs
+    in order, on this rank's card (TF32 off, as in the parent), or on
+    ``device`` when one is named; ``refs`` names the files of one
+    process's updates, by job."""
+    import torch
+    sys.path.insert(0, ROOT)
+    # cuBLAS's deterministic workspace (par_steps), set before its first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device) if device else \
+        torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job in ("yolo", "rcnn"):
+            out[job] = par_steps(job, dev, proposals if job == "rcnn"
+                                 else None, (refs or {}).get(job))
+        elif job == "run":
+            out[job] = par_run(dev, work)
+        elif job == "eval":
+            out[job] = par_eval(dev)
+        else:
+            out[job] = par_stop_and_guard(dev, work)
+        out[job]["seconds_total"] = time.perf_counter() - t0
+    return out
+
+
+def par_close(got: dict, want: dict, what: str, failures: list) -> dict:
+    """Hold a rank's step results to one process's: metrics within PAR_REL
+    relative, BatchNorm statistics within PAR_REL relative and PAR_BN_ABS
+    absolute, and the update (:func:`par_update_check`) within
+    PAR_UPD_REL and PAR_LOOSE_MAX. The checksum's error is reported, not
+    held: at AdamW's PAR_LR three steps move Σ|w| by about 1e-4 of itself
+    whatever the update does. Returns the largest errors; each miss is
+    added to ``failures``."""
+    err = {}
+    for s in ("step1", f"step{PAR_STEPS}"):
+        g, w = got[s], want[s]
+        rel = {k: abs(g["metrics"][k] - v) / max(abs(v), 1e-12)
+               for k, v in w["metrics"].items()}
+        chk = abs(g["checksum"] - w["checksum"]) / abs(w["checksum"])
+        d = (g["bn"] - w["bn"]).abs()
+        bn_ok = bool((d <= PAR_REL * w["bn"].abs() + PAR_BN_ABS).all())
+        err[s] = {"metrics_rel": rel, "checksum_rel": chk,
+                  "bn_max_abs": float(d.max())}
+        if max(rel.values()) > PAR_REL or not bn_ok:
+            failures.append(f"4l {what} {s}: two ranks differ from one "
+                            f"process: {err[s]}")
+    up = err["update"] = got["update_check"]
+    if max(up["delta_rel"], up["ema_delta_rel"]) > PAR_UPD_REL or \
+            up["loose_share"] > PAR_LOOSE_MAX:
+        failures.append(f"4l {what}: the update of two ranks differs from "
+                        f"one process's: {up}")
+    return err
+
+
+def parallel_phase(dev, smi: str) -> dict:
+    """Phase 4l: data parallelism over two processes on this card (gloo,
+    which takes CUDA tensors; NCCL refuses two ranks on one card), held to
+    one process on the global batch, and over NCCL where there are two
+    cards. The one-process answers come first, then the two ranks (so the
+    two never share the card in time)."""
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.parallel import mesh as M
+    out = {"card": smi, "backend": "gloo",
+           "note": "gloo moves every gradient through the host; its step "
+                   "time is not the rate NCCL gives across cards"}
+    refs_dir = tempfile.TemporaryDirectory()
+    refs = {}
+    t0 = time.perf_counter()
+    one = {"yolo": par_steps("yolo", dev), "rcnn": par_steps("rcnn", dev),
+           "eval": par_eval(dev)}
+    for what in ("yolo", "rcnn"):         # one process's updates, for ranks
+        refs[what] = os.path.join(refs_dir.name, f"{what}.pt")
+        torch.save(one[what].pop("update"), refs[what])
+    with tempfile.TemporaryDirectory() as work:
+        one["run"] = par_run(dev, work)
+    out["one_process_s"] = time.perf_counter() - t0
+    log(f"4l one process: yolo step {one['yolo']['step_ms']:.1f} ms (B=16), "
+        f"rcnn step {one['rcnn']['step_ms']:.1f} ms (B=8), eval "
+        f"{one['eval']['stats']['AP']:.6f} AP, {len(one['eval']['dets'])} "
+        f"dets")
+    torch.cuda.empty_cache()
+    jobs = ["yolo", "run", "rcnn", "eval", "stop"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = M.run_ranks(parallel_rank, 2, (work, jobs, (
+            "cpu" if dev.type == "cpu" else None),
+            one["rcnn"].pop("proposals"), refs), backend="gloo",
+            timeout_s=600.0, group_timeout_s=300.0)
+    out["two_ranks_s"] = time.perf_counter() - t0
+    failures = []         # every comparison runs; the misses raise at the end
+    for what in ("yolo", "rcnn"):
+        for r in ranks:
+            if r[what]["ranks"] != 2:
+                raise AssertionError(f"4l {what}: rank ran alone")
+        a, b = ranks[0][what], ranks[1][what]
+        if a[f"step{PAR_STEPS}"]["checksum"] != \
+                b[f"step{PAR_STEPS}"]["checksum"] or not torch.equal(
+                    a[f"step{PAR_STEPS}"]["bn"], b[f"step{PAR_STEPS}"]["bn"]):
+            raise AssertionError(f"4l {what}: the ranks' weights differ")
+        out[what] = {"errors": par_close(a, one[what], what, failures),
+                     "step_ms_one_process": one[what]["step_ms"],
+                     "step_ms_two_ranks": [r[what]["step_ms"] for r in ranks],
+                     "rows_per_rank": a["rows_per_rank"],
+                     "launches_one_process": one[what]["launches"],
+                     "launches_per_rank": [r[what]["launches"]
+                                           for r in ranks]}
+    out["rcnn"]["own_proposals_vs_one_process"] = [
+        r["rcnn"]["proposals_own_vs_one_process"] for r in ranks]
+    want_rcnn = {"nms_mask": 5 * PAR_STEPS,
+                 "iou_matrix": 2 * (PAR_RCNN_BATCH // 2) * PAR_STEPS}
+    for r in ranks if dev.type == "cuda" else ():   # kernels: on the card
+        got = r["rcnn"]["launches"]
+        if any(got[k] != v for k, v in want_rcnn.items()):
+            failures.append(f"4l rcnn: launches {got}, not {want_rcnn}")
+        if r["run"]["launches"]["nms_fixpoint"] < 1:
+            failures.append(f"4l run: the rank's in-loop eval launched "
+                            f"{r['run']['launches']}")
+        if r["eval"]["launches"]["nms_fixpoint"] < 1:
+            failures.append("4l eval: nms_fixpoint did not launch")
+    out["run"] = {"launches_one_process": one["run"]["launches"],
+                  "launches_per_rank": [r["run"]["launches"] for r in ranks],
+                  "epochs_one_process": one["run"]["epochs"],
+                  "epochs_two_ranks": ranks[0]["run"]["epochs"]}
+    e1, e2 = one["eval"], ranks[0]["eval"]
+    stat_err = max(abs(e2["stats"][k] - v) for k, v in e1["stats"].items()
+                   if k not in ("images_per_sec",))
+    # the merged dets element by element, sorted alike: the same images
+    # and classes, boxes and scores within PAR_DET_TOL
+    d1, d2 = e1["dets"], e2["dets"]
+    det_err = float(np.abs(d2 - d1).max()) if d1.shape == d2.shape and \
+        len(d1) and (d2[:, :2] == d1[:, :2]).all() else float("inf")
+    if stat_err > PAR_STATS_TOL or det_err > PAR_DET_TOL or \
+            ranks[1]["eval"]["dets"] is not None or \
+            ranks[1]["eval"]["stats"]["AP"] != e2["stats"]["AP"]:
+        failures.append(f"4l eval: merged {e2['stats']} ({len(d2)} dets, "
+                        f"max error {det_err}) against {e1['stats']} "
+                        f"({len(d1)})")
+    out["eval"] = {"stats_max_abs_err": stat_err, "dets": len(d1),
+                   "dets_max_abs_err": det_err,
+                   "AP": e1["stats"]["AP"],
+                   "launches_one_process": e1["launches"],
+                   "launches_per_rank": [r["eval"]["launches"]
+                                         for r in ranks],
+                   "seconds_one_process": e1["seconds"],
+                   "seconds_per_rank": [r["eval"]["seconds"] for r in ranks]}
+    stops = [r["stop"] for r in ranks]
+    if stops[0]["evals"] != stops[1]["evals"] or \
+            stops[0]["epochs"] != stops[1]["epochs"] or \
+            stops[0]["epochs"] >= 4 or any(
+                s["guard"] is None or "resume disagreement" not in s["guard"]
+                for s in stops):
+        failures.append(f"4l early stop / resume guard: {stops}")
+    out["stop_and_guard"] = stops
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        nccl = M.run_ranks(parallel_rank, 2, ("", ["yolo"], None, None,
+                                              refs), backend="nccl",
+                           timeout_s=300.0)
+        out["nccl"] = {"errors": par_close(nccl[0]["yolo"], one["yolo"],
+                                           "yolo nccl", failures),
+                       "step_ms_two_ranks": [r["yolo"]["step_ms"]
+                                             for r in nccl],
+                       "seconds": time.perf_counter() - t0}
+    else:
+        out["nccl"] = "not run: 1 card"
+    out["seconds_per_rank"] = {j: [r[j]["seconds_total"] for r in ranks]
+                               for j in jobs}
+    log(f"4l two ranks (gloo, one card): yolo step "
+        f"{out['yolo']['step_ms_two_ranks']} ms a rank (8 rows) against "
+        f"{one['yolo']['step_ms']:.1f} ms (16 rows, one process); rcnn "
+        f"{out['rcnn']['step_ms_two_ranks']} against "
+        f"{one['rcnn']['step_ms']:.1f}; errors yolo {out['yolo']['errors']}, "
+        f"rcnn {out['rcnn']['errors']}; eval stats err {stat_err}, dets "
+        f"err {det_err}; "
+        f"nms_fixpoint in the in-loop eval a rank "
+        f"{[r['run']['launches']['nms_fixpoint'] for r in ranks]}; nccl "
+        f"{out['nccl'] if isinstance(out['nccl'], str) else 'run'}")
+    refs_dir.cleanup()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4477,6 +5052,11 @@ def main() -> int:
         raise AssertionError("run_train's loader choice disagrees with the "
                              "loader core's build")
     log(f"[phase 4k.3 done at {time.perf_counter() - t_start:.1f} s]")
+    # 4l. two ranks on this card (gloo) held to one process: YOLOv5s and
+    # FasterRCNN train steps, the in-loop eval, the sharded run_eval, the
+    # early stop and the resume guard; NCCL where there are two cards
+    parallel = parallel_phase(dev, smi)
+    log(f"[phase 4l done at {time.perf_counter() - t_start:.1f} s]")
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
@@ -4497,6 +5077,10 @@ def main() -> int:
         "launches_int8_entry_points": {
             k: v for k, v in int8["entry_points"]["yolov5_s_coco_640"].items()
             if k.endswith("launches")},
+        "launches_ddp_run_train_eval_per_rank":
+            [r["nms_fixpoint"] for r in parallel["run"]["launches_per_rank"]],
+        "launches_ddp_eval_per_rank":
+            [r["nms_fixpoint"] for r in parallel["eval"]["launches_per_rank"]],
         "op_ms_b32": ops_cost["nms_fixpoint B=32 N=1024"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
@@ -4546,6 +5130,8 @@ def main() -> int:
                 "faster_rcnn_pafpn_decoupled_coco_832"].items()
             if k.endswith("launches")},
         "launches_rcnn_train": rcnn_train["run_train"]["launches"]["nms_mask"],
+        "launches_ddp_rcnn_steps_per_rank":
+            [r["nms_mask"] for r in parallel["rcnn"]["launches_per_rank"]],
         "largest_n_checked": max(v["padded_n"] for v in
                                  rcnn["nms_mask_large_n"].values()),
         "max_n": rcnn["nms_mask_max_n"],
@@ -4575,6 +5161,8 @@ def main() -> int:
         "launches": iou_counts["iou_matrix"],
         "launches_rcnn_train":
             rcnn_train["run_train"]["launches"]["iou_matrix"],
+        "launches_ddp_rcnn_steps_per_rank":
+            [r["iou_matrix"] for r in parallel["rcnn"]["launches_per_rank"]],
         "op_ms": ops_cost["iou_matrix 1024x25200"],
         "max_abs_err": max(iou_err,
                            rcnn_train["iou_assigner"]["max_abs_err"]),
@@ -4640,6 +5228,7 @@ def main() -> int:
         "ops_cost": ops_cost}}))
     log(json.dumps({"int8": int8}))
     log(json.dumps({"native_loader": native}))
+    log(json.dumps({"parallel": parallel}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -35,7 +35,10 @@ families (``ops/quant.py``: calibration and the quant trees, run on a copy
 of the model; the int8 product ``ops/int8_conv.py`` on ``torch._int_mm``)
 through ``eval.int8`` and ``test.int8``; the device letterbox
 (``ops/letterbox.py``) and the Ultralytics state-dict loader
-(``utils/torch_convert.py``).
+(``utils/torch_convert.py``). Data parallelism (``parallel/mesh.py``, on
+``torch.distributed``): ``run_train`` under ``torchrun`` trains both
+families over processes and cards, and one process evaluates and serves
+over every local card; the reference's spatial sharding is not ported.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise (see :func:`heltondetection_tpu_torch.device.resolve_device`).

@@ -11,7 +11,10 @@
         --port 8000 --serve-batch 16
 
 ``train`` runs ``run_train`` (resuming from the newest checkpoint in the
-config's work dir unless ``--no-resume``); ``eval`` scores the config's
+config's work dir unless ``--no-resume``), data-parallel over the ranks
+when launched by ``torchrun --nproc_per_node=N -m
+heltondetection_tpu_torch.cli --mode train …`` (NCCL, a card a rank);
+``eval`` scores the config's
 checkpoint (``cfg.eval.ckpt``) on its val set with ``run_eval``, logging
 its artifacts, and with ``--out`` also writes the dets as a COCO results
 JSON; ``test`` runs ``run_test`` on ``--source`` (rendered frames and, with
@@ -20,7 +23,8 @@ writes the checkpoint's serving program as a ``torch.export`` ``.pt2``
 (``engine.export.load_serving_fn`` runs it; the NMS kernels are custom
 ops of ``heltondetection_tpu_torch.kernels.ops``, so the package must be
 importable where it is loaded); ``serve`` loads the checkpoint with
-``load_detector`` and serves it over HTTP through a ``BatchingDetector``.
+``load_detector`` and serves it over HTTP through a ``BatchingDetector``,
+each batch split over every local card when it divides by their count.
 Every mode runs on CUDA unless ``--device cpu``. ``eval.int8`` scores,
 and ``test.int8`` tests, serves and exports, the W8A8 int8 program
 (``ops/quant.py``; its quant tree is cached beside the run).
@@ -65,13 +69,25 @@ def main(argv=None):
     if args.mode == "test" and not args.source:
         p.error("--mode test requires --source")
 
+    import torch
+
     from heltondetection_tpu_torch.configs.base import load_config
     from heltondetection_tpu_torch.device import resolve_device
     from heltondetection_tpu_torch.engine import runner
-    dev = resolve_device(args.device)
     cfg = load_config(args.config)
     if args.mode == "train":
-        best = runner.run_train(cfg, resume=not args.no_resume, device=dev)
+        # run_train joins the process group first (under torchrun), which
+        # picks this rank's card; the device is resolved after that
+        dev = None
+    else:
+        dev = resolve_device(args.device)
+    if args.mode == "train":
+        from heltondetection_tpu_torch.parallel.mesh import shutdown
+        try:
+            best = runner.run_train(cfg, resume=not args.no_resume,
+                                    device=args.device)
+        finally:
+            shutdown()
         print(f"best val: {best}")
         return 0
     if args.mode == "eval":
@@ -91,9 +107,16 @@ def main(argv=None):
 
     from heltondetection_tpu_torch.engine.serve import (BatchingDetector,
                                                         serve_http)
-    det = runner.load_detector(cfg, tta=False, device=dev)
+    from heltondetection_tpu_torch.parallel.mesh import create_mesh
+    # every local card: each batch split over them when it divides
+    mesh = None
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_dev > 1 and args.serve_batch % n_dev == 0:
+        mesh = create_mesh(device=dev)
+    det = runner.load_detector(cfg, tta=False, device=dev, mesh=mesh)
     with BatchingDetector(det, batch_size=args.serve_batch,
-                          max_wait_ms=args.serve_wait_ms) as batcher:
+                          max_wait_ms=args.serve_wait_ms,
+                          mesh=mesh) as batcher:
         serve_http(batcher, host=args.host, port=args.port,
                    class_names=cfg.data.class_names)
     return 0

@@ -185,7 +185,15 @@ class TrainLoader(_LoaderBase):
     sample keys a batch carries (``DEVICE_AUG_KEYS`` for
     ``DeviceAugPipeline`` and ``NativeDeviceAugPipeline``). A pipeline
     with ``sample_batch`` makes each batch in one call on the loader's
-    C++ pool."""
+    C++ pool.
+
+    ``batch_size`` is the global batch. ``shard=(pid, nproc)`` (the
+    reference's, DistributedSampler's counterpart): every process draws the
+    same (seed, epoch) permutation and takes the contiguous rows
+    ``[pid·b/n, (pid+1)·b/n)`` of each global batch, so the union of the
+    processes' slices is the one-process batch; ``batch_size`` must divide
+    by ``nproc``. The native ``sample_batch`` path gets the same slice
+    (every sample is seeded by its index, so it is the same rows)."""
 
     KEYS = ("image", "gt_boxes", "gt_cls", "gt_mask")
     # the keys of DeviceAugPipeline's samples
@@ -193,25 +201,35 @@ class TrainLoader(_LoaderBase):
 
     def __init__(self, pipeline, batch_size: int, *, seed: int = 0,
                  num_workers: int = 8, prefetch: int = 4, device=None,
-                 keys=None):
+                 keys=None, shard=(0, 1)):
         self.device = resolve_device(device)
         self.pipe = pipeline
-        self.batch_size = batch_size
+        self.batch_size = batch_size        # the global batch
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.keys = tuple(keys or self.KEYS)
+        pid, nproc = shard
+        if batch_size % nproc:
+            raise ValueError(f"batch_size {batch_size} must divide by the "
+                             f"process count {nproc}")
+        if not 0 <= pid < nproc:
+            raise ValueError(f"shard {shard}: process {pid} of {nproc}")
+        self.shard = (pid, nproc)
+        self._lo = pid * (batch_size // nproc)
+        self._hi = self._lo + batch_size // nproc
 
     def steps_per_epoch(self) -> int:
         return len(self.pipe) // self.batch_size
 
     def host_batches(self, epoch: int) -> Iterator[Dict[str, Any]]:
-        """The epoch's batches as the reference yields them: dicts of
-        numpy arrays."""
+        """The epoch's batches (this process's rows of each) as the
+        reference yields them: dicts of numpy arrays."""
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
         order = rng.permutation(len(self.pipe))
         bs = self.batch_size
-        idx_batches = [[int(i) for i in order[b * bs:(b + 1) * bs]]
+        idx_batches = [[int(i) for i in
+                        order[b * bs:(b + 1) * bs][self._lo:self._hi]]
                        for b in range(self.steps_per_epoch())]
         if hasattr(self.pipe, "sample_batch"):
             pool = self._native_pool()

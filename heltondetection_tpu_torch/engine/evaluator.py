@@ -14,8 +14,9 @@ cross to the host.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +159,37 @@ def dispatch_step(step: Callable, images, device: torch.device):
     return host, done
 
 
+def dispatch_sharded(steps, images, mesh) -> List:
+    """:func:`dispatch_step` of each device's rows of ``images`` (split by
+    ``parallel.mesh.batch_sharding``) on that device's step, each under its
+    own device (a new thread starts on device 0): a list of (dets on the
+    host, event) parts, in batch order; over one device, its one part as
+    :func:`dispatch_step` gives it."""
+    from heltondetection_tpu_torch.parallel.mesh import batch_sharding
+    parts = []
+    for step, dev, (lo, hi) in zip(steps, mesh.devices,
+                                   batch_sharding(mesh, len(images))):
+        with torch.cuda.device(dev) if dev.type == "cuda" else \
+                contextlib.nullcontext():
+            parts.append(dispatch_step(step, images[lo:hi], dev))
+    return parts[0] if len(parts) == 1 else parts
+
+
+def fetch_dets(out) -> Tuple[np.ndarray, ...]:
+    """Wait for the dets of :func:`dispatch_step` (or of each part of
+    :func:`dispatch_sharded`) and return them as numpy arrays, the parts
+    concatenated in batch order."""
+    parts = out if isinstance(out, list) else [out]
+    got = []
+    for host, done in parts:
+        if done is not None:
+            done.synchronize()
+        got.append([t.numpy() for t in host])
+    if len(got) == 1:
+        return tuple(got[0])
+    return tuple(np.concatenate(ts) for ts in zip(*got))
+
+
 class Evaluator:
     """COCO-style evaluator over an iterator of batches.
 
@@ -168,27 +200,43 @@ class Evaluator:
     ``image`` (B, S, S, 3) uint8, ``img_id`` (``None`` marks a padding row),
     the letterbox's ``scale``/``pad_x``/``pad_y`` and ``orig_hw`` (h, w).
     Images go to ``device`` (CUDA unless ``device="cpu"``).
+
+    ``mesh`` (``parallel.mesh.Mesh``, the reference's ``mesh``; default
+    the one device ``device``): each batch is split by rows over the mesh's
+    devices, and ``forward_fn`` or ``step_fn`` is a sequence of one
+    function a device, each over its replica of the model
+    (``parallel.mesh.replicate``), or one function for a mesh of one; every
+    device runs its rows and the dets are concatenated in batch order. The
+    batch must divide by the device count.
     """
 
     def __init__(self, forward_fn: Optional[Callable], num_classes: int, *,
                  conf_thres: float = 0.001, iou_thres: float = 0.65,
                  pre_nms_topk: int = 1024, max_det: int = 300,
                  multi_label: bool = True,
-                 step_fn: Optional[Callable] = None, device=None):
-        self.device = resolve_device(device)
+                 step_fn: Optional[Callable] = None, device=None,
+                 mesh=None):
+        from heltondetection_tpu_torch.parallel.mesh import mesh_functions
         self.num_classes = num_classes
+        if step_fn is None and forward_fn is None:
+            raise ValueError("need forward_fn or step_fn")
+        self.mesh, fns = mesh_functions(
+            step_fn if step_fn is not None else forward_fn, mesh, device)
+        self.device = self.mesh.devices[0]
         if step_fn is None:
-            if forward_fn is None:
-                raise ValueError("need forward_fn or step_fn")
             post = make_postprocess(num_classes, conf_thres=conf_thres,
                                     iou_thres=iou_thres,
                                     pre_nms_topk=pre_nms_topk,
                                     max_det=max_det, multi_label=multi_label)
 
-            def step_fn(images):
-                return post(*forward_fn(images))
+            def wrap(forward):
+                def step(images):
+                    return post(*forward(images))
+                return step
 
-        self._step = step_fn
+            fns = [wrap(f) for f in fns]
+        self._steps = fns
+        self._step = fns[0]
 
     def run(self, batches: Iterable[Dict[str, Any]],
             det_eval: Optional[DetEval] = None,
@@ -201,18 +249,8 @@ class Evaluator:
         ``images_per_sec`` counts the host accumulate, not the final
         summarize."""
         ev = det_eval or DetEval(self.num_classes)
-        n_img = 0
         t0 = time.perf_counter()
-        pending = None
-        for batch in batches:
-            out = self._dispatch(batch["image"])
-            meta = (batch["img_id"], batch["scale"], batch["pad_x"],
-                    batch["pad_y"], batch["orig_hw"])
-            if pending is not None:
-                n_img += self._accumulate(ev, *pending)
-            pending = (out, meta)
-        if pending is not None:
-            n_img += self._accumulate(ev, *pending)
+        n_img = self.collect(batches, ev)
         dt = time.perf_counter() - t0
         stats = ev.summarize()
         stats["images_per_sec"] = n_img / max(dt, 1e-9)
@@ -223,20 +261,33 @@ class Evaluator:
                   f"{stats['images_per_sec']:.1f}")
         return stats
 
+    def collect(self, batches: Iterable[Dict[str, Any]], det_eval) -> int:
+        """Run every batch and add its dets to ``det_eval`` (anything with
+        ``add_det``), without summarizing; returns the images counted."""
+        n_img = 0
+        pending = None
+        for batch in batches:
+            out = self._dispatch(batch["image"])
+            meta = (batch["img_id"], batch["scale"], batch["pad_x"],
+                    batch["pad_y"], batch["orig_hw"])
+            if pending is not None:
+                n_img += self._accumulate(det_eval, *pending)
+            pending = (out, meta)
+        if pending is not None:
+            n_img += self._accumulate(det_eval, *pending)
+        return n_img
+
     def _dispatch(self, images):
-        """Enqueue one batch's step and its dets' copy to the host; see
-        :func:`dispatch_step`."""
-        return dispatch_step(self._step, images, self.device)
+        """Enqueue one batch's step and its dets' copy to the host, one part
+        a device of the mesh; see :func:`dispatch_sharded`."""
+        return dispatch_sharded(self._steps, images, self.mesh)
 
     @staticmethod
     def _accumulate(ev: DetEval, out, meta) -> int:
         """Wait for one batch's dets and add them to the DetEval. The
         letterbox inverse runs over the whole (B, K) block in one numpy
         pass."""
-        host, done = out
-        if done is not None:
-            done.synchronize()
-        ob, os_, oc, ov = (t.numpy() for t in host)
+        ob, os_, oc, ov = fetch_dets(out)
         img_ids, scale, pad_x, pad_y, orig_hw = meta
         s = np.asarray(scale, np.float32).reshape(-1, 1)
         px = np.asarray(pad_x, np.float32).reshape(-1, 1)

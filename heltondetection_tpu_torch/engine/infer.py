@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from heltondetection_tpu_torch.data.letterbox import letterbox_np
-from heltondetection_tpu_torch.device import resolve_device
 from heltondetection_tpu_torch.engine.evaluator import make_postprocess
 from heltondetection_tpu_torch.ops.wbf import weighted_boxes_fusion
 
@@ -37,17 +36,28 @@ class Detector:
     after the first a letterbox at ``round(img_size·scale/32)·32``. The
     views' dets are mapped to the first view's coordinates and fused by
     :func:`weighted_boxes_fusion` at ``wbf_iou`` into ``max_det`` dets per
-    frame, all on the device; only the fused dets cross to the host."""
+    frame, all on the device; only the fused dets cross to the host.
+
+    ``mesh`` (``parallel.mesh.Mesh``; default the one device ``device``):
+    ``detect_fn`` or ``forward_fn`` is a sequence of one function a device
+    of the mesh, each over its replica, or one function for a mesh of one;
+    a batch is split by rows over the devices (it must divide by their
+    count) and the dets come back concatenated on the first device, which
+    is the detector's ``device``. ``BatchingDetector`` serves such a
+    detector over every device of its mesh."""
 
     def __init__(self, detect_fn: Optional[Callable], num_classes: int,
                  img_size: int, *, forward_fn: Optional[Callable] = None,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  max_det: int = 300, tta: bool = False,
                  tta_scales: Sequence[float] = (1.0, 0.83),
-                 wbf_iou: float = 0.55, device=None):
+                 wbf_iou: float = 0.55, device=None, mesh=None):
+        from heltondetection_tpu_torch.parallel.mesh import mesh_functions
         if (detect_fn is None) == (forward_fn is None):
             raise ValueError("need exactly one of detect_fn and forward_fn")
-        self.device = resolve_device(device)
+        self.mesh, fns = mesh_functions(
+            detect_fn if detect_fn is not None else forward_fn, mesh, device)
+        self.device = self.mesh.devices[0]
         self.num_classes = num_classes
         self.img_size = img_size
         self.tta = tta
@@ -60,11 +70,26 @@ class Detector:
                                     iou_thres=iou_thres, max_det=max_det,
                                     multi_label=False)
 
-            @torch.inference_mode()
-            def detect_fn(images):
-                return post(*forward_fn(images))
+            def wrap(forward):
+                @torch.inference_mode()
+                def detect(images):
+                    return post(*forward(images))
+                return detect
 
-        self._detect = detect_fn
+            fns = [wrap(f) for f in fns]
+        self._steps = fns
+
+    def _detect(self, images: torch.Tensor):
+        """Each device's rows of ``images`` on its step; the dets
+        concatenated in batch order on the detector's device (one device's
+        as its step gives them)."""
+        from heltondetection_tpu_torch.parallel.mesh import shard_batch
+        outs = [step(x) for step, x in
+                zip(self._steps, shard_batch(images, self.mesh))]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                     for k in range(len(outs[0])))
 
     def detect_image(self, img_rgb: np.ndarray
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

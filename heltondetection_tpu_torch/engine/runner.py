@@ -4,20 +4,22 @@ heltondetection_tpu/engine/runner.py.
 
 Ported: ``build_dataset`` (COCO, YOLO, DOTA, VOC and VisDrone readers),
 ``build_model`` (YOLOv5, over a registry backbone too, and FasterRCNN),
-``run_train`` for both families (single process, one card) with its
-in-loop ``run_eval``: for YOLOv5 DropBlock, remat, autoanchor, multi-scale
-and the on-device augmentation (``train.device_aug``); for FasterRCNN its
-two-stage step with the backbone's frozen stages and
-``train.backbone_pretrain`` (torchvision ResNet weights). ``run_eval``
-(single process; YOLOv5's fused route on kernel ``nms_fixpoint``, its
+``run_train`` for both families with its in-loop ``run_eval``: for YOLOv5
+DropBlock, remat, autoanchor, multi-scale and the on-device augmentation
+(``train.device_aug``); for FasterRCNN its two-stage step with the
+backbone's frozen stages and ``train.backbone_pretrain`` (torchvision
+ResNet weights). ``run_eval`` (YOLOv5's fused route on kernel ``nms_fixpoint``, its
 unfused one and FasterRCNN's on ``nms_mask``) with its artifacts (the COCO
 results JSON, the per-class table, the confusion matrix and curve PNGs,
 the FLOPs line), ``run_test`` (an image, a directory of images or a
 video, with the heat-map panels), the eval forward and ``load_detector``
 for both families, each in float or W8A8 int8 (``eval.int8``,
-``test.int8``: ``_int8_quant_tree`` and ``ops/quant.py``). Parts not
-ported raise ``NotImplementedError`` naming their ROADMAP item: more than
-one device (A14).
+``test.int8``: ``_int8_quant_tree`` and ``ops/quant.py``). More than one
+process (``torchrun``) trains data-parallel and evaluates a stride of the
+val set on each rank, merged at rank 0; one process with several cards
+evaluates and serves over all of them (``parallel/mesh.py``). The one part
+not ported raises ``NotImplementedError`` naming its ROADMAP item:
+``train.spatial_shards`` (A14b).
 
 Where ``train.native_loader`` is set (every config's default) and the C++
 loader core builds (``native/loader_core.cpp``: g++ with the OpenCV and
@@ -30,12 +32,13 @@ in the reference (:func:`train_from_datasets`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +53,14 @@ from heltondetection_tpu_torch.models.faster_rcnn import (FasterRCNN,
 from heltondetection_tpu_torch.models.yolov5 import (YOLOv5, decode_full,
                                                      pack_head_variables)
 from heltondetection_tpu_torch.ops.anchors import normalize_anchors
+from heltondetection_tpu_torch.parallel.mesh import (Mesh, all_gather_object,
+                                                     broadcast_object,
+                                                     create_mesh,
+                                                     gather_object,
+                                                     init_distributed,
+                                                     process_count,
+                                                     process_index,
+                                                     rank_rows, replicate)
 from heltondetection_tpu_torch.utils import ckpt as ckpt_io
 from heltondetection_tpu_torch.utils.log import LOGGER, TBWriter, get_logger
 
@@ -265,7 +276,11 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
              _reuse: Optional[Dict] = None, *, device=None
              ) -> Dict[str, float]:
     """``--mode eval``: the val set → COCO AP, on ``device`` (CUDA unless
-    ``device="cpu"``), single process.
+    ``device="cpu"``). One process with more than one card splits each val
+    batch over all of them when the batch divides by their count; under a
+    process group each rank scores the stride ``range(rank, len, N)`` of
+    the val set and rank 0 merges the dets through ``DetEval.add_det``
+    (the stats reach every rank; the JSON and the artifacts are rank 0's).
 
     ``state_dict`` (with ``model``, a model of the right shape) is scored
     directly; without it the config's checkpoint is loaded
@@ -323,40 +338,53 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         model = build_model(cfg.model, nc)
     rcnn = cfg.model.family == "faster_rcnn"
     fused = not rcnn and getattr(cfg.eval, "fused", True)
-    if "net" not in reuse:
-        reuse["net"] = _net_like(model, dev, packed_head=fused)
-    net = reuse["net"]
-    net.load_state_dict(
-        pack_head_variables(state_dict, nc) if fused else state_dict)
+    if "nets" not in reuse:
+        # one process over several local cards: each val batch split over
+        # them, a replica on each (the reference's eval mesh); not in a
+        # multi-process run, whose ranks take strides of the val set
+        mesh = Mesh((dev,))
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if (process_count() == 1 and n_dev > 1 and not int8
+                and cfg.eval.batch_size % n_dev == 0):
+            mesh = create_mesh(device=dev)
+            _log.info("eval sharded over %d devices", n_dev)
+        reuse["mesh"] = mesh
+        reuse["nets"] = [_net_like(model, d, packed_head=fused)
+                         for d in mesh.devices]
+    nets, mesh = reuse["nets"], reuse["mesh"]
+    for net in nets:
+        net.load_state_dict(
+            pack_head_variables(state_dict, nc) if fused else state_dict)
     if int8:
         # eval.int8 scores the program int8 serving runs: the quant tree
         # of these weights (calibrated on the standard model, as serving
         # calibrates, or from the cache) on a copy of the eval network
         from heltondetection_tpu_torch.ops.quant import attach_quant
-        std = net
+        std = nets[0]
         if fused:
             std = _net_like(model, dev)
             std.load_state_dict(state_dict)
-        net = attach_quant(net, _int8_quant_tree(cfg, std))
+        nets = [attach_quant(nets[0], _int8_quant_tree(cfg, std))]
     if "evaluator" not in reuse:       # (int8 runs only with a fresh reuse)
         anchors = _cfg_anchors(cfg)
         kw = dict(conf_thres=cfg.eval.conf_thres,
                   iou_thres=cfg.eval.iou_thres, max_det=cfg.eval.max_det)
         if fused:
-            post = make_fused_postprocess(
-                nc, pre_nms_topk=1024,
-                max_cls_per_box=4 if cfg.eval.multi_label else 1,
-                **kw, **({} if anchors is None else {"anchors": anchors}))
+            def fused_step(net):
+                post = make_fused_postprocess(
+                    nc, pre_nms_topk=1024,
+                    max_cls_per_box=4 if cfg.eval.multi_label else 1,
+                    **kw, **({} if anchors is None else {"anchors": anchors}))
+                return lambda images: post(net(images.float() / 255.0))
 
-            def step(images, net=net):
-                return post(net(images.float() / 255.0))
-
-            ev = Evaluator(None, nc, step_fn=step, device=dev)
+            steps = [fused_step(n) for n in nets]
+            ev = Evaluator(None, nc, step_fn=steps, mesh=mesh)
         else:
-            ev = Evaluator(forward_for_eval(net, nc, anchors=anchors,
-                                            device=dev), nc,
+            fwds = [forward_for_eval(n, nc, anchors=anchors, device=d)
+                    for n, d in zip(nets, mesh.devices)]
+            ev = Evaluator(fwds, nc,
                            multi_label=cfg.eval.multi_label and not rcnn,
-                           device=dev, **kw)
+                           mesh=mesh, **kw)
         reuse["evaluator"] = ev
     det = reuse.get("det")
     if det is None:
@@ -364,21 +392,29 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         ds.gt_for_eval(det)
     else:
         det.reset_dets()
-    # more than one process (ROADMAP A14) will take this pipeline for its
-    # shard of the val set too: the reference builds it and then ignores it
-    # there, which is not to be copied
+    # more than one process: each rank scores its stride of the val set
+    # (through the native pipeline too, where it builds: the reference
+    # builds it there and then ignores it), rank 0 merges
+    nproc, pid = process_count(), process_index()
+    src = ds if nproc == 1 else _DatasetShard(ds, range(pid, len(ds), nproc))
     native, why = _native_pipelines(cfg)
     if native is not None:
         pipe = native.NativeEvalPipeline(
-            ds, cfg.model.img_size, decode_in_pool=cfg.train.decode_in_pool)
+            src, cfg.model.img_size, decode_in_pool=cfg.train.decode_in_pool)
         _once(reuse, "loader_note", "eval loader: NativeEvalPipeline (C++)")
     else:
-        pipe = EvalPipeline(ds, cfg.model.img_size)
+        pipe = EvalPipeline(src, cfg.model.img_size)
         _once(reuse, "loader_note", "eval loader: the Python EvalPipeline "
               "(%s)", why)
     with EvalLoader(pipe, cfg.eval.batch_size,
                     num_workers=cfg.train.num_workers) as loader:
-        stats = reuse["evaluator"].run(loader, det_eval=det, verbose=False)
+        if nproc == 1:
+            stats = reuse["evaluator"].run(loader, det_eval=det,
+                                           verbose=False)
+        else:
+            stats = _eval_multiprocess(reuse["evaluator"], loader, det)
+    if pid != 0:         # the merged dets, and so the artifacts, are rank 0's
+        return stats
     if dump_json:
         results = det.to_coco_json(getattr(ds, "label_to_cat", None))
         with open(dump_json, "w") as f:
@@ -389,6 +425,62 @@ def run_eval(cfg: ExperimentConfig, state_dict=None, model=None,
         _log.info("eval results for %s:\n%s", cfg.name, format_summary(stats))
         _eval_artifacts(cfg, ds, det, model)
     return stats
+
+
+class _DatasetShard:
+    """A strided view of a dataset for the process-sharded eval: the
+    ``len``/``load`` surface (and ``load_encoded`` where the dataset has
+    it) that the eval pipelines read."""
+
+    def __init__(self, ds, indices):
+        self._ds = ds
+        self._idx = list(indices)
+        self.num_classes = getattr(ds, "num_classes", None)
+        if hasattr(ds, "load_encoded"):
+            self.load_encoded = lambda i: ds.load_encoded(self._idx[i])
+
+    def __len__(self):
+        return len(self._idx)
+
+    def load(self, i):
+        return self._ds.load(self._idx[i])
+
+
+class _DetLog:
+    """A sink of ``Evaluator.collect``: the ``add_det`` calls, kept for
+    rank 0 to replay."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_det(self, img_id, boxes_xywh, scores, classes):
+        self.calls.append((img_id, np.asarray(boxes_xywh),
+                           np.asarray(scores), np.asarray(classes)))
+
+
+def _eval_multiprocess(ev, loader, det) -> Dict[str, float]:
+    """This rank's stride of the val set through ``ev``; the dets gathered
+    at rank 0 and merged through ``det.add_det`` (the gt-registered
+    DetEval, which then holds every rank's dets on rank 0 only); the
+    summary reaches every rank."""
+    t0 = time.perf_counter()
+    log = _DetLog()
+    n_img = ev.collect(loader, log)
+    parts = gather_object((n_img, log.calls))
+    stats = None
+    if parts is not None:
+        n_img = 0
+        for n, calls in parts:
+            n_img += n
+            for call in calls:
+                det.add_det(*call)
+        stats = det.summarize()
+        stats["num_images"] = n_img
+        stats["images_per_sec"] = n_img / max(time.perf_counter() - t0,
+                                              1e-9)
+        _log.info("multi-process eval: %d processes, %d images merged",
+                  len(parts), n_img)
+    return broadcast_object(stats)
 
 
 def _eval_artifacts(cfg: ExperimentConfig, ds, det, model: Model) -> None:
@@ -433,9 +525,10 @@ def _check_train_config(cfg: ExperimentConfig) -> None:
     mc, tc = cfg.model, cfg.train
     if tc.spatial_shards > 1:
         # the reference refuses spatial_shards with device_aug too
-        raise NotImplementedError("train.spatial_shards and every other "
-                                  "multi-device path are not ported yet "
-                                  "(ROADMAP A14)")
+        raise NotImplementedError("train.spatial_shards (the image's H "
+                                  "axis sharded over devices, with a halo "
+                                  "exchange) is not ported yet (ROADMAP "
+                                  "A14b)")
     if mc.family == "faster_rcnn" and tc.multi_scale:
         raise ValueError(
             "train.multi_scale is a yolov5 feature (the two-stage proposal "
@@ -482,7 +575,12 @@ class _XyxyTargets:
 def run_train(cfg: ExperimentConfig, resume: bool = True, *, device=None
               ) -> Dict[str, float]:
     """``--mode train``: :func:`train_from_datasets` on the config's train
-    and val readers, on ``device`` (CUDA unless ``device="cpu"``)."""
+    and val readers, on ``device`` (CUDA unless ``device="cpu"``). Under
+    ``torchrun`` (or any cluster markers) it first joins the process group
+    (``parallel.mesh.init_distributed``), and the run is data-parallel."""
+    # the process group first (torchrun's markers, or none: a no-op), so
+    # the device below is this rank's card
+    init_distributed()
     dev = resolve_device(device)
     val_ds = build_dataset(cfg.data, "val") if cfg.data.val_ann else None
     return train_from_datasets(cfg, build_dataset(cfg.data, "train"), val_ds,
@@ -507,10 +605,22 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     state the checkpoints keep, so a resumed run continues its stream;
     ``train.backbone_pretrain`` loads a torchvision ResNet into its
     backbone before the EMA is made. ``device_aug``, ``autoanchor`` and
-    ``multi_scale`` are YOLOv5's. Single process, one device. The train
-    pipeline is the native one where ``train.native_loader`` is set and
-    the loader core builds (the log names the pipeline taken, and why when
-    it is the Python one).
+    ``multi_scale`` are YOLOv5's. The train pipeline is the native one
+    where ``train.native_loader`` is set and the loader core builds (the
+    log names the pipeline taken, and why when it is the Python one).
+
+    Under an initialized process group of N ranks (``run_train`` joins
+    one under ``torchrun``) the run is data-parallel, one device a rank:
+    each rank loads its rows of every global batch
+    (``TrainLoader(shard=…)``), the step averages gradients and metrics
+    over the ranks (``train/trainer.py``), BatchNorm uses the global
+    batch's statistics, the in-loop eval scores a stride of the val set on
+    each rank and merges at rank 0, and only rank 0 writes the log file,
+    TensorBoard, checkpoints and ``best.json``. At the start the ranks
+    all-gather (start epoch, step, parameter checksum) and raise on a
+    resume disagreement (a work dir that is not shared, or one rank on an
+    incompatible checkpoint); the early stop is rank 0's decision,
+    broadcast to all.
 
     Two environment variables, as in the reference:
 
@@ -547,8 +657,12 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     if cfg.train.batch_size % accum:
         raise ValueError(f"batch_size ({cfg.train.batch_size}) must be "
                          f"divisible by grad_accum ({accum})")
-    logger = get_logger(log_file=os.path.join(cfg.log_dir, "train.log"))
-    tb = TBWriter(cfg.log_dir)
+    pid, nproc = process_index(), process_count()
+    # one writer of the shared files: N ranks appending to one train.log
+    # interleave their lines; the stream log stays on every rank
+    logger = get_logger(log_file=os.path.join(cfg.log_dir, "train.log")
+                        if pid == 0 else None)
+    tb = TBWriter(cfg.log_dir if pid == 0 else None)
     nc = train_ds.num_classes or cfg.model.num_classes
     cfg.model.num_classes = nc
     is_rcnn = cfg.model.family == "faster_rcnn"
@@ -589,7 +703,13 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
         pipe = _XyxyTargets(pipe)
         keys = ("image", "gt_boxes_xyxy", "gt_cls", "gt_mask")
     loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
-                         num_workers=tc.num_workers, device=dev, keys=keys)
+                         num_workers=tc.num_workers, device=dev, keys=keys,
+                         shard=(pid, nproc))
+    if nproc > 1 and (tc.batch_size // nproc) % accum:
+        raise ValueError(
+            f"grad_accum={accum} does not divide each rank's "
+            f"{tc.batch_size // nproc} rows of batch_size {tc.batch_size} "
+            f"over {nproc} processes")
     steps_per_epoch = loader.steps_per_epoch()
     if steps_per_epoch < 1:
         raise ValueError(
@@ -617,7 +737,8 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
         model.packed_train = True    # the same weights, the loss's layout
         base_step = make_train_step(loss_cfg, use_ema=tc.ema,
                                     accum_steps=accum, seed=tc.seed)
-        augmented = _device_augment(cfg, dev) if device_aug else None
+        augmented = _device_augment(cfg, dev, (pid, nproc)) \
+            if device_aug else None
         sized = None
         if tc.multi_scale:
             ms_sizes = multiscale_sizes(cfg.model.img_size, tc.multi_scale)
@@ -673,6 +794,11 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
             "backbone_frozen_stages=0", mc.backbone_norm_eval,
             mc.backbone_frozen_stages)
 
+    if nproc > 1:
+        _resume_agreement(start_epoch, state)
+        replicate(model)            # rank 0's weights, checked on every rank
+        logger.info("data-parallel over %d processes (rank %d, %s)", nproc,
+                    pid, dev)
     logger.info("training %s: %d epochs x %d steps on %s", cfg.name,
                 cfg.train.epochs, steps_per_epoch, dev)
     trace_dir = os.environ.get("HELTON_PROFILE_DIR")
@@ -687,8 +813,11 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     anomaly = torch.is_anomaly_enabled()
     if debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    writer = ckpt_io.CheckpointWriter(cfg.ckpt_dir)
-    best_writer = ckpt_io.CheckpointWriter(cfg.best_ckpt_dir, max_to_keep=1)
+    writer = best_writer = None
+    if pid == 0:                     # the one writer of the checkpoints
+        writer = ckpt_io.CheckpointWriter(cfg.ckpt_dir)
+        best_writer = ckpt_io.CheckpointWriter(cfg.best_ckpt_dir,
+                                               max_to_keep=1)
     try:
         return _train_epochs(cfg, loader, step_fn, state, tb, logger,
                              start_epoch, val_ds, dev, writer, best_writer,
@@ -696,7 +825,8 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     finally:
         loader.close()
         for w in (writer, best_writer):
-            w.close()
+            if w is not None:
+                w.close()
         if debug_nans:
             torch.autograd.set_detect_anomaly(anomaly)
         tb.close()
@@ -707,6 +837,23 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
                                 f"train-{os.getpid()}.pt.trace.json")
             profiler.export_chrome_trace(path)
             logger.info("profiler trace → %s", path)
+
+
+def _resume_agreement(start_epoch: int, state) -> None:
+    """Raise ValueError when the ranks did not restore the same state:
+    each restored on its own, and a work dir that is not shared, or one
+    rank falling back from an incompatible checkpoint while another
+    restores, would step from different epochs (a collective hang) or
+    average gradients of different weights."""
+    fp = (float(start_epoch), float(state.step),
+          sum(float(p.detach().double().abs().sum())
+              for p in state.model.parameters()))
+    every = all_gather_object(fp)
+    if any(f != every[0] for f in every):
+        raise ValueError(
+            "multi-process resume disagreement: per-rank (start_epoch, "
+            f"step, param-checksum) = {every}: the ranks must restore the "
+            "same checkpoint (a shared ckpt_dir)")
 
 
 def _autoanchor(cfg: ExperimentConfig, train_ds, logger) -> None:
@@ -732,11 +879,13 @@ def _autoanchor(cfg: ExperimentConfig, train_ds, logger) -> None:
     cfg.model.anchors = new
 
 
-def _device_augment(cfg: ExperimentConfig, dev) -> Callable:
+def _device_augment(cfg: ExperimentConfig, dev,
+                    shard: Tuple[int, int] = (0, 1)) -> Callable:
     """``augmented(step, batch) → batch``: the on-device augmentation of
     ``data.device_aug`` with draws from a generator on ``dev`` seeded by
     (``train.seed``, step), so a resumed run draws what an unbroken one
-    would."""
+    would; a batch is rank ``shard[0]``'s rows of ``shard[1]`` (default
+    one process's), and the draws are the global batch's rows of it."""
     from heltondetection_tpu_torch.data.device_aug import (
         device_augment_batch, sample_draws, step_draws_seed)
     tc = cfg.train
@@ -744,9 +893,12 @@ def _device_augment(cfg: ExperimentConfig, dev) -> Callable:
 
     def augmented(step: int, batch: Dict) -> Dict:
         gen.manual_seed(step_draws_seed(tc.seed, step))
-        draws = sample_draws(batch["images4"].shape[0], cfg.model.img_size,
-                             gen, flip_p=tc.flip_p, mixup_p=tc.mixup_p)
-        return device_augment_batch(batch, draws, hsv=tc.hsv)
+        # data parallel: the global batch's draws, this rank's rows
+        draws = sample_draws(batch["images4"].shape[0] * shard[1],
+                             cfg.model.img_size, gen, flip_p=tc.flip_p,
+                             mixup_p=tc.mixup_p)
+        return device_augment_batch(batch, rank_rows(draws, shard[1],
+                                                     shard[0]), hsv=tc.hsv)
 
     return augmented
 
@@ -777,29 +929,32 @@ def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
         t0 = time.perf_counter()
         agg: Dict[str, torch.Tensor] = {}
         n_steps, wait = 0, 0.0
-        batches = loader.epoch(epoch)
-        while True:
-            tw = time.perf_counter()
-            batch = next(batches, None)
-            wait += time.perf_counter() - tw
-            if batch is None:
-                break
-            if debug_nans:
-                try:
+        # closed on the way out, whatever leaves the loop: a step that
+        # raises must stop the loader's producer (its thread may sit in
+        # the native pool) before run_train closes the loader
+        with contextlib.closing(loader.epoch(epoch)) as batches:
+            while True:
+                tw = time.perf_counter()
+                batch = next(batches, None)
+                wait += time.perf_counter() - tw
+                if batch is None:
+                    break
+                if debug_nans:
+                    try:
+                        state, metrics = step_fn(state, batch)
+                    except RuntimeError as e:   # anomaly mode's backward check
+                        if "nan values" not in str(e):
+                            raise
+                        raise FloatingPointError(
+                            f"NaN in the backward pass at epoch {epoch} step "
+                            f"{n_steps} (HELTON_DEBUG_NANS): {e}") from e
+                    _check_finite(metrics, epoch, n_steps)
+                else:
                     state, metrics = step_fn(state, batch)
-                except RuntimeError as e:   # anomaly mode's backward check
-                    if "nan values" not in str(e):
-                        raise
-                    raise FloatingPointError(
-                        f"NaN in the backward pass at epoch {epoch} step "
-                        f"{n_steps} (HELTON_DEBUG_NANS): {e}") from e
-                _check_finite(metrics, epoch, n_steps)
-            else:
-                state, metrics = step_fn(state, batch)
-            n_steps += 1
-            # device sums: one host read per epoch, not one per step
-            for k, v in metrics.items():
-                agg[k] = agg.get(k, 0.0) + v
+                n_steps += 1
+                # device sums: one host read per epoch, not one per step
+                for k, v in metrics.items():
+                    agg[k] = agg.get(k, 0.0) + v
         means = {k: float(v) / max(n_steps, 1) for k, v in agg.items()}
         secs = time.perf_counter() - t0
         tb.scalars(epoch, means, prefix="train/")
@@ -812,11 +967,13 @@ def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
 
         last = epoch == cfg.train.epochs - 1
         stop = saved = False
-        if (epoch + 1) % cfg.train.ckpt_interval == 0 or last:
+        if ((epoch + 1) % cfg.train.ckpt_interval == 0 or last) \
+                and writer is not None:
             writer.save(state, state.step)
             saved = True
         if val_ds is not None and ((epoch + 1) % cfg.train.eval_interval == 0
                                    or last):
+            # every rank scores its stride; the merged stats reach all
             weights = dict(state.model.state_dict())
             if state.ema is not None:
                 weights.update(state.ema)
@@ -830,18 +987,22 @@ def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
                         extra={"eval_stats": dict(stats, epoch=epoch)})
             if stats.get("AP", 0) > best.get("AP", -1):
                 best, best_epoch = stats, epoch
-                best_writer.save(state, state.step)
-                _write_best_json(cfg, stats, state.step)
-                logger.info("epoch %d: new best AP=%.4f → %s", epoch + 1,
-                            stats["AP"], cfg.best_ckpt_dir)
+                if best_writer is not None:
+                    best_writer.save(state, state.step)
+                    _write_best_json(cfg, stats, state.step)
+                    logger.info("epoch %d: new best AP=%.4f → %s", epoch + 1,
+                                stats["AP"], cfg.best_ckpt_dir)
             elif patience is not None and epoch - best_epoch >= patience:
                 logger.info("early stop at epoch %d: no val AP improvement "
                             "since epoch %d (patience %d); best AP=%.4f",
                             epoch + 1, best_epoch + 1, patience,
                             best.get("AP", 0.0))
                 stop = True
-                if not saved:   # the final weights, whatever the interval
-                    writer.save(state, state.step)
+                if not saved and writer is not None:
+                    writer.save(state, state.step)   # the final weights
+        if patience is not None and process_count() > 1:
+            # every rank leaves the loop together: rank 0's decision
+            stop = bool(broadcast_object(stop))
         if stop:
             break
     return best
@@ -879,7 +1040,9 @@ def load_detector(config, ckpt: Optional[str] = None, *, device=None,
     or an explicit checkpoint directory (``utils/ckpt.py`` layout).
     ``device``: CUDA unless ``"cpu"``. ``detector_kwargs`` override the
     config's test-time knobs (``conf_thres``, ``iou_thres``, ``tta``,
-    ``tta_scales``, ``max_det``).
+    ``tta_scales``, ``max_det``); ``mesh`` (``parallel.mesh.create_mesh``)
+    puts one replica on each of its devices and splits each batch over
+    them (the detector ``BatchingDetector(mesh=…)`` serves).
 
     >>> det = heltondetection_tpu_torch.load_detector("configs/myexp.py")
     >>> boxes, scores, classes = det.detect_image(img_rgb)
@@ -923,22 +1086,39 @@ def _make_detector(cfg, model: Model, nc: int, *, device=None,
             "the built serve step — the custom fn runs as given (float "
             "unless it quantizes itself)")
         int8 = False
-    quant = _int8_quant_tree(cfg, model.to(dev)) if int8 else None
+    mesh = kw.pop("mesh", None)
+    if mesh is not None and detect_fn is not None:
+        raise ValueError("mesh builds the serve steps: pass no detect_fn")
+    mesh = mesh or Mesh((dev,))
+    quant = _int8_quant_tree(cfg, model.to(mesh.devices[0])
+                             ) if int8 else None
+    # one replica (and step) a device of the mesh
+    replicas = list(zip(replicate(model, mesh), mesh.devices))
     fwd = None
     if detect_fn is None:
         if cfg.model.family == "yolov5" and getattr(cfg.eval, "fused", True):
             from heltondetection_tpu_torch.engine.evaluator import \
                 make_packed_serve_step
-            detect_fn = make_packed_serve_step(
-                model, nc, conf_thres=kw["conf_thres"],
+            detect_fn = [make_packed_serve_step(
+                m, nc, conf_thres=kw["conf_thres"],
                 iou_thres=kw["iou_thres"], max_det=kw.get("max_det", 300),
-                multi_label=False, anchors=_cfg_anchors(cfg), device=dev,
-                quant=quant)
+                multi_label=False, anchors=_cfg_anchors(cfg), device=d,
+                quant=_tree_to(quant, d)) for m, d in replicas]
         else:
-            fwd = forward_for_eval(model, nc, anchors=_cfg_anchors(cfg),
-                                   device=dev, quant=quant)
+            fwd = [forward_for_eval(m, nc, anchors=_cfg_anchors(cfg),
+                                    device=d, quant=_tree_to(quant, d))
+                   for m, d in replicas]
     return Detector(detect_fn, nc, cfg.model.img_size, forward_fn=fwd,
-                    device=dev, **kw)
+                    mesh=mesh, **kw)
+
+
+def _tree_to(tree, dev):
+    """A quant tree (nested dicts of tensors) with its tensors on ``dev``."""
+    if tree is None:
+        return None
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else
+            (v.to(dev) if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
 
 
 def _quant_cache_paths(tree: Dict) -> Dict[str, np.ndarray]:

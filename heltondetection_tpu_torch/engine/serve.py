@@ -39,8 +39,9 @@ import numpy as np
 import torch
 
 from heltondetection_tpu_torch.data.letterbox import letterbox_np
+from heltondetection_tpu_torch.engine.evaluator import (dispatch_sharded,
+                                                        fetch_dets)
 from heltondetection_tpu_torch.device import resolve_device
-from heltondetection_tpu_torch.engine.evaluator import dispatch_step
 from heltondetection_tpu_torch.engine.infer import Detector
 
 _log = logging.getLogger("heltondetection_tpu_torch")
@@ -64,14 +65,17 @@ class BatchingDetector:
         that holds it, so light load (clients < batch) stops paying for
         padded slots. Default: ``batch_size`` only, which keeps results
         bit-stable across load. ``warmup()`` runs every bucket once.
-
-    The reference's ``mesh`` (one server feeding every local chip) waits
-    for the multi-GPU slice and is not a parameter here.
+      mesh: a ``parallel.mesh.Mesh`` (default: the detector's): each
+        batch is split by rows over its devices, one server feeding every
+        local card. The detector must have been built over that mesh
+        (``load_detector(..., mesh=mesh)``), and ``batch_size`` and every
+        bucket must divide by its device count: one that does not raises
+        (the reference silently drops such buckets).
     """
 
     def __init__(self, detector: Detector, *, batch_size: int = 8,
                  max_wait_ms: float = 5.0, max_in_flight: int = 2,
-                 batch_buckets: Optional[Sequence[int]] = None):
+                 mesh=None, batch_buckets: Optional[Sequence[int]] = None):
         if detector.tta:
             raise ValueError(
                 "BatchingDetector serves the single-view path; construct "
@@ -79,6 +83,12 @@ class BatchingDetector:
                 "frame: opt into it per request via Detector directly)")
         if batch_size < 1 or max_in_flight < 1:
             raise ValueError("batch_size and max_in_flight must be >= 1")
+        if mesh is None:
+            mesh = detector.mesh
+        elif mesh != detector.mesh:
+            raise ValueError("the detector was not built over this mesh: "
+                             "build it with load_detector(..., mesh=mesh)")
+        self.mesh = mesh
         self._det = detector
         self.batch_size = batch_size
         if batch_buckets is None:
@@ -89,6 +99,11 @@ class BatchingDetector:
                 raise ValueError(
                     f"batch_buckets must lie in [1, batch_size]; got "
                     f"{sorted(buckets)}")
+        bad = sorted(b for b in buckets if b % mesh.size)
+        if bad:
+            raise ValueError(
+                f"batch_size and batch_buckets must divide by the mesh's "
+                f"{mesh.size} devices; {bad} do not")
         self.batch_buckets = sorted(buckets)
         self.max_wait_s = max_wait_ms / 1e3
         self.max_in_flight = max_in_flight
@@ -145,14 +160,11 @@ class BatchingDetector:
         device, so production traffic never pays a first-shape cost (cuDNN
         picks its algorithms per shape, the decode tables are built per
         input size). Raises if that device is CUDA and there is none."""
-        dev = resolve_device(self._det.device)
+        resolve_device(self._det.device)
         s = self._det.img_size
         for b in self.batch_buckets:
-            host, done = dispatch_step(
-                self._det._detect,
-                torch.zeros((b, s, s, 3), dtype=torch.uint8), dev)
-            if done is not None:
-                done.synchronize()
+            fetch_dets(self._dispatch(
+                torch.zeros((b, s, s, 3), dtype=torch.uint8)))
 
     def close(self, timeout: float = 30.0) -> bool:
         """Drain pending requests and stop the dispatcher. Returns True if
@@ -204,10 +216,15 @@ class BatchingDetector:
             items.append(nxt)
         return items
 
+    def _dispatch(self, x: torch.Tensor):
+        """The detector's steps on ``x``, one part a device of the mesh
+        (``dispatch_sharded``), not waited for."""
+        return dispatch_sharded(self._det._steps, x, self.mesh)
+
     def _launch(self, items):
         """Stack one collection into the smallest bucket that holds it
         (pinned on CUDA) and enqueue upload, step and the dets' copies
-        back. Returns (dets on the host, their event or None, bucket)."""
+        back. Returns (the dispatched dets, for ``fetch_dets``; bucket)."""
         dev = self._det.device
         real = len(items)
         bucket = next(b for b in self.batch_buckets if b >= real)
@@ -217,23 +234,15 @@ class BatchingDetector:
         xn = x.numpy()
         for i in range(bucket):                       # tail: repeat the last
             xn[i] = items[min(i, real - 1)][0]
-        if dev.type == "cuda":
-            # a new thread starts on device 0; the detector may sit elsewhere
-            with torch.cuda.device(dev):
-                host, done = dispatch_step(self._det._detect, x, dev)
-        else:
-            host, done = dispatch_step(self._det._detect, x, dev)
-        return host, done, bucket
+        return self._dispatch(x), bucket
 
-    def _resolve(self, host, done, items):
+    def _resolve(self, out, items):
         # the step is asynchronous on CUDA: device-side failures surface
         # HERE at the wait, not at the launch. A raise must fail this
         # batch's futures, never kill the dispatcher thread (that would
         # wedge every later request).
         try:
-            if done is not None:
-                done.synchronize()
-            ob, os_, oc, ov = (t.numpy() for t in host)
+            ob, os_, oc, ov = fetch_dets(out)
         except Exception as e:
             _log.exception("BatchingDetector: fetching a batch failed")
             for _, _, _, fut in items:
@@ -249,14 +258,14 @@ class BatchingDetector:
                     fut.set_exception(e)
 
     def _dispatch_loop(self):
-        in_flight = []                 # [(host dets, event, items)]
+        in_flight = []                 # [(dispatched dets, items)]
         while True:
             items = self._collect_batch()
             if items is None:
                 break
             try:
-                host, done, bucket = self._launch(items)
-                in_flight.append((host, done, items))
+                out, bucket = self._launch(items)
+                in_flight.append((out, items))
                 with self._stats_lock:
                     self._stats["batches"] += 1
                     self._stats["padded_slots"] += bucket - len(items)

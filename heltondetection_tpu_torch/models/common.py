@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from heltondetection_tpu_torch.ops.int8_conv import int8_conv2d
+from heltondetection_tpu_torch.parallel.mesh import all_reduce_sum_grad
 
 # The calibration pass's recorder: {module: {name: (2, C) stats}} while
 # calibration_mode() is active, else None. A contextvar, so no model code
@@ -310,13 +311,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``hold_stats`` (set by :func:`checkpointed` while the backward pass
     re-runs a forward) keeps the running statistics and
     ``num_batches_tracked`` where they are: a recomputed forward normalizes
-    with the same batch statistics but must not move them a second time."""
+    with the same batch statistics but must not move them a second time.
+
+    ``shard`` (rank, world), set by the data-parallel train step
+    (``train/trainer.py``) for its duration: over more than one rank,
+    training mode normalizes with the statistics of the global batch
+    (:meth:`_synced`), as the reference's does under GSPMD."""
 
     hold_stats = False
+    shard = (0, 1)
 
     def forward(self, x):
         if not self.training or self.momentum is None:
             return super().forward(x)
+        if self.shard[1] > 1:
+            return self._synced(x)
         if not self.hold_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
@@ -326,6 +335,34 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _synced(self, x):
+        """Training over several ranks: normalize with the global
+        batch's statistics, from one all-reduce of the float32 sums of x
+        and x² and the count (the reference's GSPMD BatchNorm sees the
+        global batch; its flax variance is the same one-pass
+        E[x²] − E[x]²). The all-reduce is differentiable, so the backward
+        carries the global statistics' gradient. The running statistics
+        move toward the global mean and biased variance on every rank
+        alike (``torch.nn.SyncBatchNorm`` would move them toward the
+        unbiased one)."""
+        c = x.shape[1]
+        xf = x.float()
+        count = xf.new_full((1,), float(x.numel() // c))
+        tot = all_reduce_sum_grad(torch.cat(
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        n = tot[2 * c]
+        mean = tot[:c] / n
+        var = torch.clamp(tot[c:2 * c] / n - mean * mean, min=0.0)
+        if not self.hold_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return (xf * scale.view(1, c, 1, 1) +
+                shift.view(1, c, 1, 1)).to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -8,7 +8,9 @@ gamma``, so the same draws give the same mask here. The :class:`DropBlock`
 module makes the draws from its own ``torch.Generator`` on the input's
 device, which the train step seeds from the run's seed and the step
 (:func:`reseed_dropblock`), so a run is repeatable and every call takes a
-fresh draw.
+fresh draw. Over N data-parallel ranks (``shard``, set by the train step)
+each rank draws for the global batch and takes its rows, so N ranks drop
+the blocks one process drops.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from heltondetection_tpu_torch.parallel.mesh import rank_rows
 
 
 def draw_shape(x: torch.Tensor, block_size: int = 7):
@@ -60,7 +64,10 @@ class DropBlock(nn.Module):
     """Active in training mode only. Each call draws fresh uniforms from the
     module's generator, made on the input's device at ``seed`` (set by
     :meth:`reseed`). It has no parameters or buffers, so a state dict is the
-    same with it or without it."""
+    same with it or without it. ``shard`` (rank, world): the train step's
+    rows of the global batch, whose draws every rank makes alike."""
+
+    shard = (0, 1)
 
     def __init__(self, drop_prob: float = 0.1, block_size: int = 7):
         super().__init__()
@@ -79,8 +86,12 @@ class DropBlock(nn.Module):
             return x
         if self.generator is None or self.generator.device != x.device:
             self.generator = torch.Generator(x.device).manual_seed(self.seed)
-        u = torch.rand(draw_shape(x, self.block_size), device=x.device,
-                       generator=self.generator)
+        # data parallel: the global batch's draws, this rank's rows
+        rank, world = self.shard
+        shape = draw_shape(x, self.block_size)
+        u = rank_rows(torch.rand((shape[0] * world, *shape[1:]),
+                                 device=x.device, generator=self.generator),
+                      world, rank)
         return drop_block(x, u.permute(0, 3, 1, 2), self.drop_prob,
                           self.block_size)
 

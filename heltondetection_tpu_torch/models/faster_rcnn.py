@@ -54,6 +54,7 @@ from heltondetection_tpu_torch.ops.boxes import (clip_boxes, decode_deltas,
                                                  encode_deltas, iou_matrix)
 from heltondetection_tpu_torch.ops.nms import _topk, batched_nms
 from heltondetection_tpu_torch.ops.roi_align import multilevel_roi_align
+from heltondetection_tpu_torch.parallel.mesh import rank_rows
 
 
 class RCNNConfig(NamedTuple):
@@ -572,7 +573,8 @@ def box_head_loss(scores, deltas, labels, reg_targets, is_fg, valid):
 def faster_rcnn_loss(model: FasterRCNN, images: torch.Tensor,
                      gt_boxes_xyxy: torch.Tensor, gt_cls: torch.Tensor,
                      gt_mask: torch.Tensor, cfg: Optional[RCNNConfig] = None,
-                     draws: Union[RCNNDraws, torch.Generator, None] = None):
+                     draws: Union[RCNNDraws, torch.Generator, None] = None,
+                     shard: Tuple[int, int] = (0, 1)):
     """The two-stage training loss of a batch → (total, metrics): images
     (B, S, S, 3) float in [0, 1], gts (B, M, 4) xyxy pixels with classes
     and mask (B, M). Runs the network as it is set (training mode: batch
@@ -582,7 +584,12 @@ def faster_rcnn_loss(model: FasterRCNN, images: torch.Tensor,
     assignment; the box head over the sampled rois. Each term is the mean
     over the images; the metrics are ``rpn_obj``, ``rpn_reg``, ``cls``,
     ``box`` and ``total``, 0-d tensors. ``draws``: the sampling's uniforms,
-    or a generator on the images' device to draw them from."""
+    or a generator on the images' device to draw them from. ``shard``
+    (rank, world), from the data-parallel train step: the images are this
+    rank's rows of a global batch of B·world, and the rank takes its rows
+    of the global batch's draws (a generator draws them for the global
+    batch; given draws may be the rank's own, B rows, or the global
+    batch's)."""
     cfg = cfg or model.cfg
     b = images.shape[0]
     anchors = model.anchors(images.device)
@@ -593,9 +600,18 @@ def faster_rcnn_loss(model: FasterRCNN, images: torch.Tensor,
         props, _, pvalid = generate_proposals(obj, deltas, anchors, counts,
                                               cfg.img_size, cfg)
         del obj, deltas
+    rank, world = shard
     if not isinstance(draws, RCNNDraws):
-        draws = draw_sampling(draws, b, anchors.shape[0],
+        # data parallel: the global batch's draws, of which this rank
+        # takes its rows, as one process draws them
+        draws = draw_sampling(draws, b * world, anchors.shape[0],
                               props.shape[1] + gt_boxes_xyxy.shape[1])
+    if draws.rpn[0].shape[0] != b:
+        draws = RCNNDraws(rank_rows(draws.rpn, world, rank),
+                          rank_rows(draws.box, world, rank))
+        if draws.rpn[0].shape[0] != b:
+            raise ValueError(f"sampling draws of {draws.rpn[0].shape[0]} "
+                             f"rows for a batch of {b}")
     l_obj, l_reg = rpn_loss_sparse(model.rpn, pyr, anchors, gt_boxes_xyxy,
                                    gt_mask, cfg, draws.rpn, model.dtype)
     rois, labels, reg_t, is_fg, valid = assign_box_targets(

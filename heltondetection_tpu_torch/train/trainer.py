@@ -8,10 +8,23 @@ FasterRCNN's batch mean (:func:`make_rcnn_train_step`), whose gradient
 ``backward`` takes, then the optimizer (clipping, AdamW, schedule) and the
 EMA of the parameters. Compute runs in the model's dtype (bfloat16 on the
 card) over float32 master weights, and the loss in float32.
+
+Under a process group of N ranks each rank steps on its rows of the global
+batch. The step is where the port decides that: it hands the shard (rank,
+world) to the loss (the global normalizers) and, for its duration, to the
+model's DropBlock (the global batch's draws) and BatchNorm (the global
+batch's statistics, the one collective in the models). The gradients and
+metrics are averaged over the ranks (one all-reduce each,
+``parallel/mesh.py``) before the global-norm clip, so every rank clips,
+steps and updates its EMA with the same gradient and the weights stay
+identical. With ``accum_steps`` the ranks' interleaved
+micro-batch i is together the global batch's micro-batch i (the rank's
+rows must divide by ``accum_steps``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
@@ -19,8 +32,14 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from heltondetection_tpu_torch.models.dropblock import reseed_dropblock
+from heltondetection_tpu_torch.models.common import BatchNorm2d
+from heltondetection_tpu_torch.models.dropblock import (DropBlock,
+                                                        reseed_dropblock)
 from heltondetection_tpu_torch.models.faster_rcnn import faster_rcnn_loss
+from heltondetection_tpu_torch.parallel.mesh import (average_gradients,
+                                                     average_metrics,
+                                                     process_count,
+                                                     process_index)
 from heltondetection_tpu_torch.train.schedule import Optimizer, global_norm
 from heltondetection_tpu_torch.train.yolo_loss import (YoloLossConfig,
                                                        yolo_loss,
@@ -78,7 +97,7 @@ def grad_global_norm(model: torch.nn.Module) -> torch.Tensor:
                        if p.grad is not None)
 
 
-def _loss_on(model, batch, loss_cfg: YoloLossConfig):
+def _loss_on(model, batch, loss_cfg: YoloLossConfig, world: int):
     img = batch["image"]
     if img.dtype == torch.uint8:
         img = img.float() / 255.0           # normalization inside the step
@@ -86,7 +105,7 @@ def _loss_on(model, batch, loss_cfg: YoloLossConfig):
     # the packed train head gives per-level tuples, the standard one maps
     loss_impl = yolo_loss_packed if isinstance(outs[0], tuple) else yolo_loss
     return loss_impl(outs, batch["gt_boxes"], batch["gt_cls"],
-                     batch["gt_mask"], loss_cfg)
+                     batch["gt_mask"], loss_cfg, world=world)
 
 
 def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
@@ -110,17 +129,48 @@ def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
             for k, v in sums.items()}
 
 
+@contextlib.contextmanager
+def _data_parallel(model: torch.nn.Module, shard: Tuple[int, int]):
+    """``shard`` (rank, world) on the model's DropBlock and BatchNorm2d
+    modules for the step's forwards and backward (remat's recomputed
+    forwards included), and one process's (0, 1) again after it, so no
+    other forward on one rank waits on a collective."""
+    mods = [m for m in model.modules()
+            if isinstance(m, (BatchNorm2d, DropBlock))]
+    for m in mods:
+        m.shard = shard
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.shard = (0, 1)
+
+
 def _step(state: TrainState, loss_of: Callable, batch: Dict,
           accum_steps: int, batch_scaled: bool, use_ema: bool,
           seed: int) -> Tuple[TrainState, Dict]:
     """One step of either family: gradients (accumulated over
-    ``accum_steps`` micro-batches), their global norm, the optimizer and
-    the EMA."""
+    ``accum_steps`` micro-batches; ``loss_of(micro, i, shard)``), their
+    global norm, the optimizer and the EMA."""
     model = state.model
     model.train()
     reseed_dropblock(model, seed, state.step)
     model.zero_grad(set_to_none=True)      # frozen parameters too
-    metrics = _accum_grads(loss_of, batch, accum_steps, batch_scaled)
+    shard = (process_index(), process_count())
+    rows = next(iter(batch.values())).shape[0]
+    if shard[1] > 1 and rows % accum_steps:
+        # the ranks' micro-batch i must together be the global batch's
+        # interleaved micro-batch i: b_rank % accum == 0, which is the
+        # reference's (batch / accum) % devices == 0
+        raise ValueError(f"grad_accum={accum_steps} does not divide this "
+                         f"rank's {rows} rows")
+    with _data_parallel(model, shard):
+        metrics = _accum_grads(lambda micro, i: loss_of(micro, i, shard),
+                               batch, accum_steps, batch_scaled)
+    # data parallel: the gradients and metrics averaged over the ranks
+    # before the clip, so every rank clips and steps the same gradient
+    average_gradients(list(model.parameters()))
+    metrics = average_metrics(metrics)
     metrics["grad_norm"] = grad_global_norm(model)
     state.optimizer.step()
     if use_ema and state.ema is not None:
@@ -145,9 +195,9 @@ def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
     step into its dropout key."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        return _step(state, lambda micro, i: _loss_on(state.model, micro,
-                                                      loss_cfg),
-                     batch, accum_steps, True, use_ema, seed)
+        return _step(state, lambda micro, i, shard: _loss_on(
+            state.model, micro, loss_cfg, shard[1]),
+            batch, accum_steps, True, use_ema, seed)
 
     return train_step
 
@@ -174,14 +224,14 @@ def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
         if draws is None:
             draws = state.rng
 
-        def loss_of(micro: Dict, i: int):
+        def loss_of(micro: Dict, i: int, shard: Tuple[int, int]):
             img = micro["image"]
             if img.dtype == torch.uint8:
                 img = img.float() / 255.0      # normalization inside the step
             d = draws if isinstance(draws, torch.Generator) else draws[i]
             return faster_rcnn_loss(model, img, micro["gt_boxes_xyxy"],
                                     micro["gt_cls"], micro["gt_mask"],
-                                    draws=d)
+                                    draws=d, shard=shard)
 
         return _step(state, loss_of, batch, accum_steps, False, use_ema,
                      seed)

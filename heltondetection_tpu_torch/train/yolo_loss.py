@@ -15,6 +15,13 @@ is a scatter-*max* of the detached, clamped CIoU over those slots
 winner of an ``index_put_`` would be undefined). The backward of the
 candidate gather is a scatter-add over duplicate slots, whose float order on
 CUDA varies from run to run: the card is held to a tolerance, not to bits.
+
+Over N data-parallel ranks (``world``, from the train step; each rank on
+its rows of the global batch) the positives are counted over the global batch
+(one all-reduce a level) and the total is scaled by the global batch size,
+so the ranks' losses, and their gradients, average to the global batch's;
+the objectness term is a mean over equal shards, whose rank means average
+to the global mean.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
                                                    YOLOV5_STRIDES)
 from heltondetection_tpu_torch.ops.boxes import bbox_iou
+from heltondetection_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class YoloLossConfig(NamedTuple):
@@ -135,7 +143,7 @@ def _one_hot(cls: torch.Tensor, nc: int) -> torch.Tensor:
 
 def _level_terms(sel: torch.Tensor, box_lanes: int, obj_logits: torch.Tensor,
                  obj_index: torch.Tensor, t: Dict, cfg: YoloLossConfig,
-                 nc: int, lvl: int):
+                 nc: int, lvl: int, world: int):
     """One level's (box, obj, cls) terms. ``sel`` (B, M, A, O, ·) holds the
     candidate logits with the box lanes at ``box_lanes`` and the classes in
     the other slice (``[5:]`` standard, ``[:nc]`` packed); ``obj_logits``
@@ -143,7 +151,12 @@ def _level_terms(sel: torch.Tensor, box_lanes: int, obj_logits: torch.Tensor,
     of each candidate slot into it."""
     valid = t["valid"]
     vf = valid.float()
-    n_pos = torch.clamp(vf.sum(), min=1.0)
+    # the global batch's positives; over N ranks each rank divides by 1/N
+    # of them, so the ranks' terms average to the global batch's term
+    n_pos = vf.sum()
+    if world > 1:
+        n_pos = all_reduce_sum(n_pos)
+    n_pos = torch.clamp(n_pos, min=1.0) / world
     pxy = torch.sigmoid(sel[..., box_lanes:box_lanes + 2]) * 2.0 - 0.5
     pwh = (torch.sigmoid(sel[..., box_lanes + 2:box_lanes + 4]) * 2.0) ** 2 \
         * t["anchors_grid"][None, None, :, None, :]
@@ -183,24 +196,26 @@ def _level_terms(sel: torch.Tensor, box_lanes: int, obj_logits: torch.Tensor,
     return lbox, lobj, lcls
 
 
-def _total(lbox, lobj, lcls, cfg: YoloLossConfig, nc: int, nl: int, b: int):
+def _total(lbox, lobj, lcls, cfg: YoloLossConfig, nc: int, nl: int, b: int,
+           world: int):
     scale = 3.0 / nl
     lbox = lbox * cfg.box_gain * scale
     lobj = lobj * cfg.obj_gain * scale * (cfg.img_size / 640.0) ** 2
     lcls = lcls * cfg.cls_gain * scale * (nc / 80.0)
-    total = (lbox + lobj + lcls) * b
+    total = (lbox + lobj + lcls) * b * world   # the global batch
     return total, {"box": lbox, "obj": lobj, "cls": lcls, "total": total}
 
 
 def yolo_loss(raw_outputs: Sequence[torch.Tensor], gt_cxcywh: torch.Tensor,
               gt_cls: torch.Tensor, gt_mask: torch.Tensor,
               cfg: YoloLossConfig, anchors=YOLOV5_ANCHORS,
-              strides=YOLOV5_STRIDES
+              strides=YOLOV5_STRIDES, world: int = 1
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total YOLOv5 loss over all levels and its terms.
 
     ``raw_outputs``: per level (B, H, W, A·(5+C)) logits. The total is
-    batch-scaled as Ultralytics' (per-element means, then total × B)."""
+    batch-scaled as Ultralytics' (per-element means, then total × B).
+    ``world``: the data-parallel ranks whose rows make the global batch."""
     if cfg.anchors is not None:
         anchors = cfg.anchors
     nc = cfg.num_classes
@@ -218,17 +233,18 @@ def yolo_loss(raw_outputs: Sequence[torch.Tensor], gt_cxcywh: torch.Tensor,
         flat = ((bi * h + t["cell_y"][:, :, None, :]) * w
                 + t["cell_x"][:, :, None, :]) * a_n + ai       # (B, M, A, O)
         sel = p.reshape(-1, 5 + nc)[flat]                      # (B,M,A,O,5+C)
-        bx, ob, cl = _level_terms(sel, 0, p[..., 4], flat, t, cfg, nc, lvl)
+        bx, ob, cl = _level_terms(sel, 0, p[..., 4], flat, t, cfg, nc, lvl,
+                                  world)
         lbox, lobj = lbox + bx, lobj + ob
         if cl is not None:
             lcls = lcls + cl
-    return _total(lbox, lobj, lcls, cfg, nc, len(raw_outputs), b)
+    return _total(lbox, lobj, lcls, cfg, nc, len(raw_outputs), b, world)
 
 
 def yolo_loss_packed(packed_outputs, gt_cxcywh: torch.Tensor,
                      gt_cls: torch.Tensor, gt_mask: torch.Tensor,
                      cfg: YoloLossConfig, anchors=YOLOV5_ANCHORS,
-                     strides=YOLOV5_STRIDES
+                     strides=YOLOV5_STRIDES, world: int = 1
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`yolo_loss` on the packed train head's outputs, the same math.
 
@@ -260,8 +276,9 @@ def yolo_loss_packed(packed_outputs, gt_cxcywh: torch.Tensor,
         bi = torch.arange(b, device=f2.device)[:, None, None, None]
         ai = torch.arange(a_n, device=f2.device)[None, None, :, None]
         flat = (bi * (h * w) + cell[:, :, None, :]) * a_n + ai  # (B,M,A,O)
-        bx, ob, cl = _level_terms(sel, nc, pobj, flat, t, cfg, nc, lvl)
+        bx, ob, cl = _level_terms(sel, nc, pobj, flat, t, cfg, nc, lvl,
+                                  world)
         lbox, lobj = lbox + bx, lobj + ob
         if cl is not None:
             lcls = lcls + cl
-    return _total(lbox, lobj, lcls, cfg, nc, len(packed_outputs), b)
+    return _total(lbox, lobj, lcls, cfg, nc, len(packed_outputs), b, world)

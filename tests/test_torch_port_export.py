@@ -159,8 +159,12 @@ def test_export_yolov5_roundtrip_through_the_cli(tmp_path, monkeypatch):
     checkpoint_from_jax_variables(variables, cfg.ckpt_dir, step=1)
     x = np.random.default_rng(21).integers(0, 256, (1, SIZE, SIZE, 3)) \
         .astype(np.uint8)
-    want = _reference_dets(tmp_path, "yolov5", jmodel, variables, x,
-                           num_classes=NC, img_size=SIZE, dtype="float32")
+    # the reference in a thread, as in test_export_faster_rcnn_roundtrip
+    pool = ThreadPoolExecutor(1)
+    want = pool.submit(_reference_dets, tmp_path, "yolov5", jmodel,
+                       variables, x, num_classes=NC, img_size=SIZE,
+                       dtype="float32")
+    pool.shutdown(wait=False)
     exported = []
     monkeypatch.setattr(E, "export_serving_fn", lambda *a: exported.append(
         export_serving_fn(*a)) or exported[-1])
@@ -175,7 +179,7 @@ def test_export_yolov5_roundtrip_through_the_cli(tmp_path, monkeypatch):
     for g, e in zip(got, eager):
         assert g.dtype == e.dtype and torch.equal(g, e)
     assert got[0].shape == (1, 300, 4)
-    _held_to_reference(got, want, 0.1, 4e-3)
+    _held_to_reference(got, want.result(), 0.1, 4e-3)
     import cv2
     from heltondetection_tpu_torch.engine.runner import _int8_quant_tree
     from heltondetection_tpu_torch.ops.quant import attach_quant

@@ -9,7 +9,9 @@ packed head's bf16 candidate rows match within one bf16 ulp, since a float32
 difference in the last bits may round either way.
 """
 
+import copy
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -42,6 +44,14 @@ def _one_thread():
 
 
 def jax_variables(nc=NC, seed=0, head_scale=1.0):
+    """A fresh copy of :func:`_jax_variables`'s (model, variables): the
+    draw and the calibration run once a process for each argument set."""
+    model, variables = _jax_variables(nc, seed, head_scale)
+    return model, copy.deepcopy(variables)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_variables(nc, seed, head_scale):
     """The tiny flax YOLOv5 and a variable tree of its shapes (from
     ``jax.eval_shape``, which skips flax's slow init). Parameters are drawn
     from a numpy seed: kernels N(0, 1/fan_in), BN scale in [0.5, 1.5] and BN

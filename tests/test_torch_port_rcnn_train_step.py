@@ -38,6 +38,8 @@ tenfold. The knobs' train mode is held at the feature and statistics
 level in test_torch_port_rcnn_train.py, and here the statistics move.
 """
 
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
@@ -45,10 +47,12 @@ import torch
 import jax
 
 from heltondetection_tpu_torch.models import faster_rcnn as PR
+from heltondetection_tpu_torch.parallel.mesh import run_ranks
 from heltondetection_tpu_torch.train import schedule as PS
 from heltondetection_tpu_torch.train import trainer as PT
 from heltondetection_tpu_torch.utils.convert import from_jax_variables
 
+from torch_parallel_cases import rank_main, train_steps
 from torch_rcnn_refs import (TRAIN_CFG, TRAIN_OPT, adam_moments,
                              port_train_draws, port_train_rcnn,
                              reference_train_step, tiny_train_rcnn,
@@ -72,6 +76,17 @@ def reference():
     ``train_batch(0)`` with KEYS[0] and ``train_batch(1)`` with KEYS[1]:
     [(state, metrics, gradients by port name)] after each."""
     jm, variables = tiny_train_rcnn()
+    # the two-rank run of the same steps starts now and overlaps the
+    # reference's compile (test_two_ranks_match_jax_and_one_rank)
+    _RANKS["job"] = dict(
+        kind="rcnn", sd=from_jax_variables(variables), opt=TRAIN_OPT,
+        batches=[train_batch(i) for i in range(len(KEYS))],
+        accum=[1] * len(KEYS), draws=[port_train_draws(k) for k in KEYS])
+    _RANKS["pool"] = pool = concurrent.futures.ThreadPoolExecutor(1)
+    _RANKS["future"] = pool.submit(
+        run_ranks, rank_main, 2, ([("rcnn", "train_steps", _RANKS["job"])],),
+        backend="gloo", timeout_s=120.0, group_timeout_s=60.0,
+        start_method="forkserver")
     run, state = reference_train_step(jm, variables)
     start, steps, mu = state, [], None
     for i, key in enumerate(KEYS):
@@ -82,23 +97,37 @@ def reference():
                  for k, v in new_mu.items()}
         steps.append((state, metrics, grads))
         mu = new_mu
-    return variables, steps, run, start
+    yield variables, steps, run, start
+    _RANKS["pool"].shutdown(wait=True)
+
+
+_RANKS = {}
+
+
+def _one_process():
+    """The port's two steps of ``_RANKS["job"]`` in this process (once)."""
+    if "one" not in _RANKS:
+        _RANKS["one"] = train_steps(_RANKS["job"])
+    return _RANKS["one"]
 
 
 def _tensors(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _check_grad_norm(got, pm, grads, want):
-    """``grad_norm`` is the norm of the port's gradients, and differs from
-    the reference's by no more than their difference's norm (the triangle
-    inequality), both summed in float64."""
+def _grads(pm):
+    return {k: p.grad for k, p in pm.named_parameters() if p.grad is not None}
+
+
+def _check_grad_norm(got, pgrads, grads, want):
+    """``grad_norm`` is the norm of the port's gradients ``pgrads`` (by
+    name), and differs from the reference's by no more than their
+    difference's norm (the triangle inequality), both summed in float64."""
     own = diff = 0.0
-    for k, p in pm.named_parameters():
-        if p.grad is not None:
-            g = p.grad.double()
-            own += float((g * g).sum())
-            diff += float(((g - grads[k].double()) ** 2).sum())
+    for k, pg in pgrads.items():
+        g = pg.double()
+        own += float((g * g).sum())
+        diff += float(((g - grads[k].double()) ** 2).sum())
     own, diff = np.sqrt(own), np.sqrt(diff)
     assert abs(got - own) <= 1e-6 * own, (got, own)
     assert abs(got - want) <= diff + 1e-6 * want, (got, want, diff)
@@ -178,31 +207,27 @@ def test_rcnn_train_step_matches_jax(reference):
     terms within 1e-4 relative, ``grad_norm`` as the module docstring
     says, parameters and EMA within 2e-4 (plus twice the learning rate
     where the two gradients differ by over 1 %); the frozen stage does not
-    move."""
+    move. The port's steps are ``torch_parallel_cases.train_steps``, whose
+    results test_two_ranks_match_jax_and_one_rank reads too."""
     variables, steps, _, _ = reference
-    pm = port_train_rcnn(variables)
-    state = PT.create_train_state(pm, PS.make_optimizer(pm, 1e-3,
-                                                        **TRAIN_OPT))
-    step = PT.make_rcnn_train_step()
+    one = _one_process()
     loose = {}      # where the two gradients differ by over 1 % of the ref's
-    for i, (key, (_, metrics, grads)) in enumerate(zip(KEYS, steps)):
-        state, got = step(state, _tensors(train_batch(i)),
-                          [port_train_draws(key)])
-        for k, p in pm.named_parameters():
-            if p.grad is not None:
-                loose[k] = loose.get(k, False) | (
-                    (p.grad - grads[k]).abs() > 1e-2 * grads[k].abs())
+    for i, (_, metrics, grads) in enumerate(steps):
+        got, pgrads = one["metrics"][i], one["grads"][i]
+        for k, g in pgrads.items():
+            loose[k] = loose.get(k, False) | (
+                (g - grads[k]).abs() > 1e-2 * grads[k].abs())
         for k in ("rpn_obj", "rpn_reg", "cls", "box", "total"):
-            np.testing.assert_allclose(float(got[k]), float(metrics[k]),
+            np.testing.assert_allclose(got[k], float(metrics[k]),
                                        rtol=1e-4, err_msg=k)
-        _check_grad_norm(float(got["grad_norm"]), pm, grads,
+        _check_grad_norm(got["grad_norm"], pgrads, grads,
                          float(metrics["grad_norm"]))
-    assert state.step == 2
+    assert one["step"] == 2
     final = steps[-1][0]
     sd = from_jax_variables({"params": final.params,
                              "batch_stats": final.batch_stats})
     emas = from_jax_variables({"params": final.ema_params})
-    own = pm.state_dict()
+    own = one["state"]
     for k, v in sd.items():
         if not v.is_floating_point():
             continue
@@ -213,7 +238,7 @@ def test_rcnn_train_step_matches_jax(reference):
         tol = 2e-4 + 1e-4 * v.abs() + 2e-3 * loose.get(k, False)
         assert bool(((own[k] - v).abs() <= tol).all()), k
         if k in emas:
-            assert bool(((state.ema[k] - emas[k]).abs() <= tol).all()), k
+            assert bool(((one["ema"][k] - emas[k]).abs() <= tol).all()), k
     start = from_jax_variables({"params": variables["params"]})
     assert torch.equal(own["backbone.stem_conv.weight"],
                        start["backbone.stem_conv.weight"])
@@ -252,7 +277,7 @@ def test_grad_accum_matches_jax(reference):
         np.testing.assert_allclose(
             float(got[k]), (float(metrics[0][k]) + float(metrics[1][k])) / 2,
             rtol=1e-4, err_msg=k)
-    _check_grad_norm(float(got["grad_norm"]), pm, grads, gnorm)
+    _check_grad_norm(float(got["grad_norm"]), _grads(pm), grads, gnorm)
     for k, p in pm.named_parameters():
         if p.grad is not None:
             np.testing.assert_allclose(p.grad.numpy(), grads[k].numpy(),
@@ -265,3 +290,52 @@ def test_grad_accum_matches_jax(reference):
                                        atol=1e-6, err_msg=k)
     # the neck's statistics moved once per micro-batch
     assert int(own["neck.in0.bn.num_batches_tracked"]) == 2
+
+
+def test_two_ranks_match_jax_and_one_rank(reference):
+    """The two steps of test_rcnn_train_step_matches_jax on two gloo ranks
+    of one image each (``parallel.mesh.run_ranks``; each rank takes its
+    row of the reference's draws for the two-image batch, the neck's
+    BatchNorm normalizes by the global batch, the gradients are averaged):
+    against the reference's single-process steps on the whole batch, every
+    loss term within 1e-4 relative (as one port process is held above)
+    and the parameter checksum (Σ|p|) within 1e-4 relative
+    (tests/test_multihost.py's bound); against one port process on the
+    same draws, the loss terms within 1e-5 relative, ``grad_norm`` within
+    2e-4 relative (the neck's train-mode BatchNorm over two images
+    amplifies the ranks' other summation order, as the module docstring
+    says of the two packages), the checksum within 1e-6 relative and
+    parameters and EMA within 2e-4 (plus twice the learning rate where
+    the two gradients differ by over 1 %, the rule of
+    test_rcnn_train_step_matches_jax). Both ranks end with the same
+    weights."""
+    _, steps, _, _ = reference
+    ranks = _RANKS["future"].result(timeout=180)
+    two = ranks[0]["rcnn"]
+    for k, v in two["state"].items():
+        assert torch.equal(v, ranks[1]["rcnn"]["state"][k]), k
+    for got, (_, want, _) in zip(two["metrics"], steps):
+        for k in ("rpn_obj", "rpn_reg", "cls", "box", "total"):
+            np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-4,
+                                       err_msg=k)
+    final = steps[-1][0]
+    chk = float(sum(np.abs(np.asarray(p, np.float64)).sum()
+                    for p in jax.tree_util.tree_leaves(final.params)))
+    np.testing.assert_allclose(two["checksum"], chk, rtol=1e-4)
+    one = _one_process()
+    for got, want in zip(two["metrics"], one["metrics"]):
+        for k in want:
+            np.testing.assert_allclose(
+                got[k], want[k], rtol=2e-4 if k == "grad_norm" else 1e-5,
+                atol=1e-7, err_msg=k)
+    np.testing.assert_allclose(two["checksum"], one["checksum"], rtol=1e-6)
+    loose = {}      # test_rcnn_train_step_matches_jax's rule for Adam
+    for g2, g1 in zip(two["grads"], one["grads"]):
+        for k, g in g1.items():
+            loose[k] = loose.get(k, False) | ((g2[k] - g).abs() >
+                                              1e-2 * g.abs())
+    for name in ("state", "ema"):
+        for k, v in one[name].items():
+            if v.is_floating_point():
+                tol = 2e-4 + 1e-4 * v.abs() + 2e-3 * loose.get(k, False)
+                assert bool(((two[name][k] - v).abs() <= tol).all()), k

@@ -30,6 +30,7 @@ pixels. Tolerances, each with its reason:
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 import textwrap
 
 import cv2
@@ -278,16 +279,21 @@ def _panels_close(got_path, want_path, levels, size):
 def _run_both(tmp_path, monkeypatch, jcfg, variables, port_cfg, source,
               name):
     """The reference's run_test and the port's (the CLI's runner call) on
-    one source, each into its own output directory."""
+    one source, each into its own output directory; the reference runs in
+    a thread meanwhile (XLA's compiles leave the interpreter lock to the
+    port)."""
     monkeypatch.setattr(j_runner, "_load_eval_variables",
                         lambda cfg, model=None: variables)
     out_j = tmp_path / "ref_out"
     out_p = tmp_path / "port_out"
     out_j.mkdir(exist_ok=True)
     out_p.mkdir(exist_ok=True)
-    want = j_runner.run_test(jcfg, source, str(out_j / name))
-    got = runner.run_test(p_base.load_config(port_cfg), source,
-                          str(out_p / name), device="cpu")
+    with ThreadPoolExecutor(1) as pool:
+        want = pool.submit(j_runner.run_test, jcfg, source,
+                           str(out_j / name))
+        got = runner.run_test(p_base.load_config(port_cfg), source,
+                              str(out_p / name), device="cpu")
+        want = want.result()
     return got, want, out_p, out_j
 
 

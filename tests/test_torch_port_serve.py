@@ -43,6 +43,7 @@ from heltondetection_tpu_torch.engine.runner import (forward_for_eval,
 from heltondetection_tpu_torch.engine.serve import BatchingDetector
 from heltondetection_tpu_torch.kernels import launch_counts
 from heltondetection_tpu_torch.models.yolov5 import build_yolov5
+from heltondetection_tpu_torch.parallel.mesh import Mesh
 
 from test_torch_port_model import jax_variables, port_model
 
@@ -170,6 +171,7 @@ class _CudaDetectorStub:
     """What BatchingDetector reads of a Detector that sits on a CUDA
     device."""
     tta, img_size, device = False, SIZE, torch.device("cuda", 0)
+    mesh = Mesh((device,))
 
 
 def _warmup_on_cuda_detector():

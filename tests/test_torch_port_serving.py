@@ -31,6 +31,7 @@ from heltondetection_tpu_torch.engine.infer import Detector
 from heltondetection_tpu_torch.engine.serve import (BatchingDetector,
                                                     make_http_server)
 from heltondetection_tpu_torch.kernels import launch_counts
+from heltondetection_tpu_torch.parallel.mesh import Mesh
 
 from test_torch_port_model import jax_variables, port_model
 from test_torch_port_serve import (NC, SIZE, _assert_same_dets, _noise,
@@ -185,11 +186,16 @@ def test_rejects_tta_detector(detector):
 
 class _FakeDet:
     """Minimal Detector stand-in with exactly the surface BatchingDetector
-    touches (.tta, .img_size, .device, ._detect, ._to_source), a gate to
-    hold the dispatcher mid-batch, and scripted failures."""
+    touches (.tta, .img_size, .device, .mesh, ._steps, ._to_source), a
+    gate to hold the dispatcher mid-batch, and scripted failures."""
     tta = False
     img_size = 64
     device = torch.device("cpu")
+    mesh = Mesh((device,))
+
+    @property
+    def _steps(self):
+        return [self._detect]
 
     def __init__(self):
         self.calls = 0

@@ -240,3 +240,32 @@ def test_debug_nans_names_the_poisoned_step(tmp_path, monkeypatch):
         runner._check_finite({"box": torch.tensor(1.0),
                               "obj": torch.tensor(float("inf"))}, 3, 7)
     runner._check_finite({"box": torch.tensor(1.0)}, 0, 0)
+
+
+def test_a_step_that_raises_stops_the_loader_first(tmp_path):
+    """The epoch's batch generator is closed as soon as a step raises,
+    before ``train_from_datasets`` closes the loader: its producer thread
+    may sit in the native pool, and a pool freed under it crashed the
+    process (a worker died with a segmentation fault when a step raised
+    on native batches)."""
+    events = []
+
+    class Loader:
+        def epoch(self, epoch):
+            try:
+                yield {"image": None}
+                yield {"image": None}
+            finally:
+                events.append("epoch closed")
+
+    def step_fn(state, batch):
+        raise RuntimeError("step failed")
+
+    cfg = _config(tmp_path)
+    with pytest.raises(RuntimeError, match="step failed") as info:
+        runner._train_epochs(cfg, Loader(), step_fn, None, _TB(None),
+                             logging.getLogger("hooks"), 0, None, "cpu",
+                             None, None)
+    # the traceback still holds the loop's frame: only the close can have
+    # finished the generator
+    assert info.value is not None and events == ["epoch closed"]
