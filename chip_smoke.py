@@ -329,6 +329,25 @@ fails:
          the resume disagreement;
       5. over NCCL, 4l.1's steps, only where there are two cards or more
          (else the line says "not run: 1 card");
+4m. spatial sharding (parallel/spatial.py): two gloo ranks on this
+    card as 1 data x 2 spatial (each rank every image of the batch and
+    its band of H rows), after one process on the same inputs:
+      1. yolov5_s_coco_640 at 640², float32, global B=8: 4l.1's steps and
+         rules (train.spatial_shards's step: the halo exchanges, the
+         detect outputs gathered); spatial_forward of YOLOv5s (BatchNorm
+         calibrated) against the unsharded eval forward within
+         SP_FWD_TOL of its largest output;
+      2. faster_rcnn_pafpn_decoupled_coco_832 at 832², float32, B=4: 4l.2's
+         steps and rules (the pyramid gathered before the RPN); nms_mask 5
+         and iou_matrix 2 x 4 launches a step a rank, as predicted;
+      3. train_from_datasets of yolov5_s_coco_640 (bf16, B=16, device_aug
+         off) with train.spatial_shards=2: two steps, the in-loop eval
+         (nms_fixpoint on each rank), rank 0's checkpoint of step 2;
+      4. yolov5_s_visdrone_1280 (bf16, B=16, device_aug off): the peak
+         torch.cuda.max_memory_allocated and the step ms of a rank against
+         one process's;
+      5. over NCCL, 4m.1's steps where there are two cards or more (else
+         "not run: 1 card");
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -354,7 +373,7 @@ fails:
 
 The lines before the last are the serve, eval, serving, train,
 train_configs, rcnn, rcnn_train, export_test_artifacts, int8,
-native_loader and parallel lines, the
+native_loader, parallel and spatial lines, the
 kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
 evals' launches as launches_train_eval and
 launches_train_eval_visdrone_1280 and run_test's as
@@ -368,7 +387,8 @@ launches as launches_rcnn_train and its times at the assigner's shape as
 rcnn_assigner; each entry's op_ms the time through its custom op and
 through its wrapper; launches_native_loader_run_train the launches of
 phase 4k.2's runs, null where the loader core did not build; the
-launches_ddp_* keys phase 4l's launches on each rank), and the
+launches_ddp_* keys phase 4l's launches on each rank, the
+launches_spatial_* keys phase 4m's), and the
 card's nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3721,14 +3741,16 @@ def par_sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def par_batches(kind: str, dev, size: int):
+def par_batches(kind: str, dev, size: int, batch=None):
     """The global batches of the exactness runs, made alike in every
     process from seeds: PAR_STEPS batches of seeded frames through the
-    train pipeline with augmentation off (FasterRCNN's gt boxes as xyxy)."""
+    train pipeline with augmentation off (FasterRCNN's gt boxes as xyxy),
+    of ``batch`` frames (default PAR_YOLO_BATCH or PAR_RCNN_BATCH)."""
     import torch
     from heltondetection_tpu_torch.data.augment import TrainPipeline
     b, seed = ((PAR_YOLO_BATCH, 40) if kind == "yolo" else
                (PAR_RCNN_BATCH, 41))
+    b = batch or b
     pipe = TrainPipeline(SynthFrames(b * PAR_STEPS, seed), size,
                          mosaic_p=0.0, hsv=False, flip_p=0.0, max_boxes=32)
     out = []
@@ -3754,13 +3776,16 @@ def par_flat(tensors):
     return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
 
-def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
-    """4l.1 / 4l.2: PAR_STEPS float32 train steps (TF32 off) of the
-    published config at full width on this process's rows of the global
-    batches (all of them without a process group): the metrics, parameter
-    checksum and BatchNorm statistics after step 1 and step PAR_STEPS, the
-    kernels' launches over the steps, then the step's ms by CUDA events
-    over PAR_TIMED_STEPS more.
+def par_steps(kind: str, dev, proposals=None, ref=None, batch=None,
+              spatial: int = 1) -> dict:
+    """4l.1 / 4l.2 (and 4m.1 / 4m.2 with ``spatial`` = 2): PAR_STEPS
+    float32 train steps (TF32 off) of the published config at full width
+    on this process's rows of the global batches of ``batch`` frames (all
+    of them without a process group; under spatial sharding, its data
+    rank's rows, of which the step keeps its band of H rows): the
+    metrics, parameter checksum and BatchNorm statistics after step 1 and
+    step PAR_STEPS, the kernels' launches over the steps, then the step's
+    ms by CUDA events over PAR_TIMED_STEPS more.
 
     The update: each step's gradients (zeros where a parameter has none)
     and, after step PAR_STEPS, the change of the parameters and of the EMA
@@ -3788,7 +3813,14 @@ def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
         create_train_state, make_rcnn_train_step, make_train_step)
     from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
     cfg = rcnn_config(PAR_YOLO_CONFIG if kind == "yolo" else RCNN_CONFIG)
-    batches = par_batches(kind, dev, cfg.model.img_size)
+    batches = par_batches(kind, dev, cfg.model.img_size, batch)
+    # this process's rows: its data rank's (every rank's in one process)
+    n_data = M.process_count() // spatial
+    data_rank = M.process_index() // spatial
+
+    def rows_of(t):
+        return M.rank_rows(t, n_data, data_rank)
+
     if kind == "yolo":
         model = build_model(dataclasses.replace(cfg.model, dtype="float32"),
                             80)
@@ -3796,14 +3828,15 @@ def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
         model = model.to(dev, memory_format=torch.channels_last)
         model.packed_train = True
         step = make_train_step(YoloLossConfig(
-            num_classes=80, img_size=cfg.model.img_size))
+            num_classes=80, img_size=cfg.model.img_size),
+            spatial_shards=spatial)
         rng = None
     else:
         x = batches[0]["image"][:2].float() / 255.0
         model = rcnn_model(dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, dtype="float32")),
             dev, 0, x)
-        step = make_rcnn_train_step()
+        step = make_rcnn_train_step(spatial_shards=spatial)
         rng = torch.Generator(dev).manual_seed(7)
     M.replicate(model)       # rank 0's weights on every rank, checked
     state = create_train_state(model, make_optimizer(
@@ -3822,8 +3855,7 @@ def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
         seen.append(tuple(t.cpu() for t in got))
         if proposals is None or i >= len(proposals):
             return got
-        return tuple(M.rank_rows(t.to(got[0].device))
-                     for t in proposals[i])
+        return tuple(rows_of(t.to(got[0].device)) for t in proposals[i])
 
     rcnn_mod.generate_proposals = recorded
     # the checked steps on deterministic algorithms (the process's
@@ -3838,8 +3870,8 @@ def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
     try:
         par_sync(dev)
         reset_launch_counts()
-        for s, batch in enumerate(batches):
-            state, m = step(state, M.shard_batch(batch))
+        for s, b in enumerate(batches):
+            state, m = step(state, {k: rows_of(v) for k, v in b.items()})
             grads.append(par_flat(p.grad if p.grad is not None else
                                   torch.zeros_like(p) for p in params))
             if s in (0, PAR_STEPS - 1):
@@ -3866,11 +3898,11 @@ def par_steps(kind: str, dev, proposals=None, ref=None) -> dict:
         out["proposals"] = seen[:PAR_STEPS]
         if proposals is not None:     # own against one process's, per step
             out["proposals_own_vs_one_process"] = [{
-                "valid_differ": int((o[2] != M.rank_rows(w[2])).sum()),
-                "boxes_over_0.05px": int(((o[0] - M.rank_rows(w[0])).abs()
+                "valid_differ": int((o[2] != rows_of(w[2])).sum()),
+                "boxes_over_0.05px": int(((o[0] - rows_of(w[0])).abs()
                                           .amax(-1) > 0.05).sum())}
                 for o, w in zip(seen, proposals)]
-    rows = M.shard_batch(batches[-1])
+    rows = {k: rows_of(v) for k, v in batches[-1].items()}
     out["step_ms"] = cuda_ms(lambda: step(state, rows), PAR_TIMED_STEPS,
                              warmup=1)
     out["rows_per_rank"] = int(rows["image"].shape[0])
@@ -3946,11 +3978,14 @@ def par_eval(dev) -> dict:
             "seconds": secs}
 
 
-def par_run(dev, work: str) -> dict:
+def par_run(dev, work: str, spatial: int = 1) -> dict:
     """4l.1's in-loop eval: train_from_datasets of yolov5_s_coco_640
     (bf16, global B=16) on 16 train and 16 val frames, one epoch of one
     step with its in-loop eval, the launch counts reset before and read
-    after (this process's own)."""
+    after (this process's own). With ``spatial`` = 2 (4m.3):
+    ``train.spatial_shards=2`` (``device_aug`` off, as the reference
+    requires) on 32 train frames, two steps, and the checkpoints it
+    wrote."""
     import dataclasses
     import torch
     from heltondetection_tpu_torch.engine.runner import train_from_datasets
@@ -3958,16 +3993,19 @@ def par_run(dev, work: str) -> dict:
                                                    reset_launch_counts)
     cfg = rcnn_config(PAR_YOLO_CONFIG)
     cfg = dataclasses.replace(
-        cfg, name="chip_par_run", work_dir=work,
+        cfg, name=f"chip_par_run{spatial}", work_dir=work,
         train=dataclasses.replace(cfg.train, epochs=1, batch_size=16,
                                   eval_interval=1, ckpt_interval=1,
-                                  native_loader=False, num_workers=8),
+                                  native_loader=False, num_workers=8,
+                                  spatial_shards=spatial,
+                                  device_aug=cfg.train.device_aug and
+                                  spatial == 1),
         eval=dataclasses.replace(cfg.eval, batch_size=8))
     par_sync(dev)
     reset_launch_counts()
     records = LogRecords()
     try:
-        best = train_from_datasets(cfg, SynthFrames(16, 14),
+        best = train_from_datasets(cfg, SynthFrames(16 * spatial, 14),
                                    SynthFrames(16, 15), device=dev)
         epochs = records.field("epoch_stats")
     finally:
@@ -3975,7 +4013,9 @@ def par_run(dev, work: str) -> dict:
     par_sync(dev)
     return {"launches": dict(launch_counts), "best_AP": best.get("AP"),
             "epochs": [{k: e[k] for k in ("steps", "total", "grad_norm")}
-                       for e in epochs]}
+                       for e in epochs],
+            "ckpt": sorted(os.listdir(cfg.ckpt_dir))
+            if os.path.isdir(cfg.ckpt_dir) else []}
 
 
 def par_stop_and_guard(dev, work: str) -> dict:
@@ -4024,11 +4064,12 @@ def par_stop_and_guard(dev, work: str) -> dict:
 
 
 def parallel_rank(rank: int, work: str, jobs, device=None,
-                  proposals=None, refs=None) -> dict:
-    """One rank of phase 4l (spawned by parallel.mesh.run_ranks): the jobs
-    in order, on this rank's card (TF32 off, as in the parent), or on
-    ``device`` when one is named; ``refs`` names the files of one
-    process's updates, by job."""
+                  proposals=None, refs=None, spatial: int = 1) -> dict:
+    """One rank of phase 4l or, with ``spatial`` = 2, of phase 4m (spawned
+    by parallel.mesh.run_ranks): the jobs in order, on this rank's card
+    (TF32 off, as in the parent), or on ``device`` when one is named;
+    ``refs`` names the files of one process's updates (and 4m's forward),
+    by job."""
     import torch
     sys.path.insert(0, ROOT)
     # cuBLAS's deterministic workspace (par_steps), set before its first use
@@ -4042,9 +4083,15 @@ def parallel_rank(rank: int, work: str, jobs, device=None,
         t0 = time.perf_counter()
         if job in ("yolo", "rcnn"):
             out[job] = par_steps(job, dev, proposals if job == "rcnn"
-                                 else None, (refs or {}).get(job))
+                                 else None, (refs or {}).get(job),
+                                 SP_BATCH[job] if spatial > 1 else None,
+                                 spatial)
         elif job == "run":
-            out[job] = par_run(dev, work)
+            out[job] = par_run(dev, work, spatial)
+        elif job == "forward":
+            out[job] = sp_forward(dev, refs["forward"])
+        elif job == "memory":
+            out[job] = sp_memory(dev, spatial)
         elif job == "eval":
             out[job] = par_eval(dev)
         else:
@@ -4053,7 +4100,8 @@ def parallel_rank(rank: int, work: str, jobs, device=None,
     return out
 
 
-def par_close(got: dict, want: dict, what: str, failures: list) -> dict:
+def par_close(got: dict, want: dict, what: str, failures: list,
+              phase: str = "4l") -> dict:
     """Hold a rank's step results to one process's: metrics within PAR_REL
     relative, BatchNorm statistics within PAR_REL relative and PAR_BN_ABS
     absolute, and the update (:func:`par_update_check`) within
@@ -4072,13 +4120,13 @@ def par_close(got: dict, want: dict, what: str, failures: list) -> dict:
         err[s] = {"metrics_rel": rel, "checksum_rel": chk,
                   "bn_max_abs": float(d.max())}
         if max(rel.values()) > PAR_REL or not bn_ok:
-            failures.append(f"4l {what} {s}: two ranks differ from one "
-                            f"process: {err[s]}")
+            failures.append(f"{phase} {what} {s}: two ranks differ from "
+                            f"one process: {err[s]}")
     up = err["update"] = got["update_check"]
     if max(up["delta_rel"], up["ema_delta_rel"]) > PAR_UPD_REL or \
             up["loose_share"] > PAR_LOOSE_MAX:
-        failures.append(f"4l {what}: the update of two ranks differs from "
-                        f"one process's: {up}")
+        failures.append(f"{phase} {what}: the update of two ranks differs "
+                        f"from one process's: {up}")
     return err
 
 
@@ -4206,6 +4254,239 @@ def parallel_phase(dev, smi: str) -> dict:
         f"nms_fixpoint in the in-loop eval a rank "
         f"{[r['run']['launches']['nms_fixpoint'] for r in ranks]}; nccl "
         f"{out['nccl'] if isinstance(out['nccl'], str) else 'run'}")
+    refs_dir.cleanup()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# 4m: spatial sharding (the image's H rows over ranks) ------------------------
+
+SP_BATCH = {"yolo": 8, "rcnn": 4}    # global; 1 data x 2 spatial: all a rank
+# spatial_forward against the unsharded forward: the largest absolute
+# difference over the largest absolute output (raw logits up to about 19
+# here). Another conv algorithm alone moves this random float32 network's
+# outputs by about 1e-5 of that (its CPU run at 1 and at 2 threads: 1.8e-4
+# of 18.8); a wrong halo row moves them by its own size
+SP_FWD_TOL = 1e-4
+SP_MEM_BATCH = 16            # 4m.4's global batch at 1280²
+SP_MEM_STEPS = 3             # 4m.4's timed steps (after one warm-up)
+
+
+def sp_forward(dev, ref=None) -> dict:
+    """4m.1's forward: YOLOv5s (seed-0 weights, BatchNorm calibrated on
+    noise, float32, eval mode) on SP_BATCH["yolo"] seeded 640² frames.
+    Without ``ref``: the unsharded forward's outputs (one process). With
+    ``ref`` (a file of those): ``spatial_forward`` on a (n/2 × 2) layout
+    and the largest absolute difference of this rank's outputs from the
+    file's rows of its data rank, and the forward's ms by CUDA events."""
+    import torch
+    from heltondetection_tpu_torch.models.yolov5 import build_yolov5
+    from heltondetection_tpu_torch.parallel import mesh as M
+    from heltondetection_tpu_torch.parallel import spatial as S
+    model = build_yolov5("s", 80, torch.float32, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    size = rcnn_config(PAR_YOLO_CONFIG).model.img_size
+    x = torch.from_numpy(np.random.default_rng(42).integers(
+        0, 256, (SP_BATCH["yolo"], size, size, 3), dtype=np.uint8)).to(dev)
+    x = x.float() / 255.0
+    if ref is None:
+        with torch.no_grad():
+            return {"outputs": [o.cpu() for o in model(x)]}
+    mesh = S.create_spatial_mesh(M.process_count() // 2, 2)
+    fwd = S.spatial_forward(model, mesh)
+    got = fwd(x)
+    want = torch.load(ref, map_location=dev)
+    b = x.shape[0] // mesh.n_data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    return {"max_abs_err": max(float((g - w[rows]).abs().max())
+                               for g, w in zip(got, want)),
+            "max_abs_output": max(float(w.abs().max()) for w in want),
+            "ms": cuda_ms(lambda: fwd(x), 3, warmup=1)}
+
+
+def sp_memory(dev, spatial: int = 1) -> dict:
+    """4m.4, what the knob is for: yolov5_s_visdrone_1280 (bf16 as
+    configured, device_aug off as the reference requires with
+    spatial_shards), global B=SP_MEM_BATCH of seeded uint8 frames and
+    boxes: after one warm-up step, the peak torch.cuda.max_memory_allocated
+    of this process over SP_MEM_STEPS steps and the step's ms by CUDA
+    events, on this process's data rows (its band of them with
+    ``spatial`` = 2)."""
+    import torch
+    from heltondetection_tpu_torch.engine.runner import (_cfg_anchors,
+                                                         build_model)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.parallel import mesh as M
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+    cfg = rcnn_config(VISDRONE_CONFIG)
+    nc, size = cfg.model.num_classes, cfg.model.img_size
+    rng = np.random.default_rng(43)
+    b, m = SP_MEM_BATCH, 32
+    xy = rng.uniform(64, size - 64, (b, m, 2))
+    wh = rng.uniform(8, 160, (b, m, 2))
+    host = {"image": rng.integers(0, 256, (b, size, size, 3),
+                                  dtype=np.uint8),
+            "gt_boxes": np.concatenate([xy, wh], -1).astype(np.float32),
+            "gt_cls": rng.integers(0, nc, (b, m)).astype(np.int32),
+            "gt_mask": rng.uniform(size=(b, m)) < 0.7}
+    n_data = M.process_count() // spatial
+    rows = {k: M.rank_rows(torch.from_numpy(v), n_data,
+                           M.process_index() // spatial).to(dev)
+            for k, v in host.items()}
+    model = build_model(cfg.model, nc)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    model.packed_train = True
+    state = create_train_state(model, make_optimizer(
+        model, 1e-4, total_steps=100, warmup_steps=1))
+    step = make_train_step(YoloLossConfig(num_classes=nc, img_size=size,
+                                          anchors=_cfg_anchors(cfg)),
+                           spatial_shards=spatial)
+    step(state, rows)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms = cuda_ms(lambda: step(state, rows), SP_MEM_STEPS, warmup=0)
+    out = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "resident_gib": base / 2 ** 30, "step_ms": ms,
+           "image_rows": int(rows["image"].shape[0]),
+           "band_rows": size // spatial, "dtype": cfg.model.dtype}
+    if M.process_count() > 1:
+        # where a rank's step goes: the host time of its collectives (a
+        # gloo all-reduce of CUDA tensors returns when its copies through
+        # the host are done), one step under the profiler (host events)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step(state, rows)
+            torch.cuda.synchronize(dev)
+        out["collectives_one_step"] = {
+            e.key: {"calls": e.count, "host_ms": e.cpu_time_total / 1e3}
+            for e in prof.key_averages()
+            if "allreduce" in e.key or "all_reduce" in e.key}
+    del state, model, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_phase(dev, smi: str) -> dict:
+    """Phase 4m: spatial sharding over two gloo ranks of this card (1 data
+    x 2 spatial: each rank holds every image of the batch and its band of
+    H rows), held to one process on the same batches by 4l's rules (the
+    one-process answers first, then the two ranks, so the two never share
+    the card in time), and over NCCL where there are two cards."""
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.parallel import mesh as M
+    out = {"card": smi, "backend": "gloo", "layout": "1 data x 2 spatial",
+           "note": "gloo moves every halo row and gathered row through "
+                   "the host; its step time is not the rate NCCL gives "
+                   "across cards"}
+    refs_dir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    one = {"yolo": par_steps("yolo", dev, batch=SP_BATCH["yolo"]),
+           "rcnn": par_steps("rcnn", dev, batch=SP_BATCH["rcnn"]),
+           "forward": sp_forward(dev), "memory": sp_memory(dev)}
+    refs = {}
+    for what, key in (("yolo", "update"), ("rcnn", "update"),
+                      ("forward", "outputs")):
+        refs[what] = os.path.join(refs_dir.name, f"{what}.pt")
+        torch.save(one[what].pop(key), refs[what])
+    out["one_process_s"] = time.perf_counter() - t0
+    log(f"4m one process: yolo step {one['yolo']['step_ms']:.1f} ms (B=8), "
+        f"rcnn step {one['rcnn']['step_ms']:.1f} ms (B=4), 1280² bf16 B=16 "
+        f"step {one['memory']['step_ms']:.1f} ms, peak "
+        f"{one['memory']['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    jobs = ["yolo", "forward", "rcnn", "run", "memory"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = M.run_ranks(parallel_rank, 2, (work, jobs, (
+            "cpu" if dev.type == "cpu" else None),
+            one["rcnn"].pop("proposals"), refs, 2), backend="gloo",
+            timeout_s=600.0, group_timeout_s=300.0)
+    out["two_ranks_s"] = time.perf_counter() - t0
+    failures = []         # every comparison runs; the misses raise at the end
+    for what in ("yolo", "rcnn"):
+        for r in ranks:
+            if r[what]["ranks"] != 2:
+                raise AssertionError(f"4m {what}: rank ran alone")
+        a, b = ranks[0][what], ranks[1][what]
+        if a[f"step{PAR_STEPS}"]["checksum"] != \
+                b[f"step{PAR_STEPS}"]["checksum"] or not torch.equal(
+                    a[f"step{PAR_STEPS}"]["bn"], b[f"step{PAR_STEPS}"]["bn"]):
+            raise AssertionError(f"4m {what}: the ranks' weights differ")
+        out[what] = {"errors": par_close(a, one[what], what, failures, "4m"),
+                     "step_ms_one_process": one[what]["step_ms"],
+                     "step_ms_two_ranks": [r[what]["step_ms"] for r in ranks],
+                     "rows_per_rank": a["rows_per_rank"],
+                     "launches_one_process": one[what]["launches"],
+                     "launches_per_rank": [r[what]["launches"]
+                                           for r in ranks]}
+    out["rcnn"]["own_proposals_vs_one_process"] = [
+        r["rcnn"]["proposals_own_vs_one_process"] for r in ranks]
+    # each rank of the one spatial group runs the RPN, the proposals and
+    # both assigners on the gathered pyramid of all SP_BATCH["rcnn"] images
+    want_rcnn = {"nms_mask": 5 * PAR_STEPS,
+                 "iou_matrix": 2 * SP_BATCH["rcnn"] * PAR_STEPS}
+    out["rcnn"]["launches_predicted_per_rank"] = want_rcnn
+    for r in ranks if dev.type == "cuda" else ():   # kernels: on the card
+        got = r["rcnn"]["launches"]
+        if any(got[k] != v for k, v in want_rcnn.items()):
+            failures.append(f"4m rcnn: launches {got}, not {want_rcnn}")
+        if r["run"]["launches"]["nms_fixpoint"] < 1:
+            failures.append(f"4m run: the rank's in-loop eval launched "
+                            f"{r['run']['launches']}")
+    fwd = [r["forward"] for r in ranks]
+    if any(f["max_abs_err"] > SP_FWD_TOL * f["max_abs_output"] for f in fwd):
+        failures.append(f"4m forward: spatial_forward differs from the "
+                        f"unsharded forward: {fwd}")
+    out["forward"] = {"per_rank": fwd, "tolerance": SP_FWD_TOL}
+    run = [r["run"] for r in ranks]
+    if "2" not in run[0]["ckpt"] or any(
+            [e["steps"] for e in r["epochs"]] != [2] for r in run):
+        failures.append(f"4m run: {run}")
+    out["run"] = {"per_rank": run}
+    mem = [r["memory"] for r in ranks]
+    out["memory_1280"] = {"one_process": one["memory"], "per_rank": mem,
+                          "peak_rank_over_one_process": [
+                              m["peak_gib"] / one["memory"]["peak_gib"]
+                              for m in mem],
+                          "step_ms_rank_over_one_process": [
+                              m["step_ms"] / one["memory"]["step_ms"]
+                              for m in mem]}
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        nccl = M.run_ranks(parallel_rank, 2, ("", ["yolo"], None, None,
+                                              refs, 2), backend="nccl",
+                           timeout_s=300.0)
+        out["nccl"] = {"errors": par_close(nccl[0]["yolo"], one["yolo"],
+                                           "yolo nccl", failures, "4m"),
+                       "step_ms_two_ranks": [r["yolo"]["step_ms"]
+                                             for r in nccl],
+                       "seconds": time.perf_counter() - t0}
+    else:
+        out["nccl"] = "not run: 1 card"
+    out["seconds_per_rank"] = {j: [r[j]["seconds_total"] for r in ranks]
+                               for j in jobs}
+    log(f"4m 1x2 spatial (gloo, one card): yolo step "
+        f"{out['yolo']['step_ms_two_ranks']} ms a rank (8 images, 320 rows "
+        f"each) against {one['yolo']['step_ms']:.1f} ms (one process); "
+        f"rcnn {out['rcnn']['step_ms_two_ranks']} against "
+        f"{one['rcnn']['step_ms']:.1f}; errors yolo {out['yolo']['errors']}, "
+        f"rcnn {out['rcnn']['errors']}; forward max abs err "
+        f"{[f['max_abs_err'] for f in fwd]}; rcnn launches a rank "
+        f"{[r['rcnn']['launches'] for r in ranks]}; nccl "
+        f"{out['nccl'] if isinstance(out['nccl'], str) else 'run'}")
+    log(f"4m.4 yolov5_s_visdrone_1280 bf16 B=16: peak "
+        f"{[round(m['peak_gib'], 3) for m in mem]} GiB a rank against "
+        f"{one['memory']['peak_gib']:.3f} GiB one process; step "
+        f"{[round(m['step_ms'], 1) for m in mem]} ms a rank against "
+        f"{one['memory']['step_ms']:.1f} ms; a rank's collectives in one "
+        f"step: {mem[0].get('collectives_one_step')}")
     refs_dir.cleanup()
     if failures:
         raise AssertionError("; ".join(failures))
@@ -5057,6 +5338,12 @@ def main() -> int:
     # early stop and the resume guard; NCCL where there are two cards
     parallel = parallel_phase(dev, smi)
     log(f"[phase 4l done at {time.perf_counter() - t_start:.1f} s]")
+    # 4m. spatial sharding over two gloo ranks on this card (1 data x 2
+    # spatial) held to one process: YOLOv5s and FasterRCNN steps,
+    # spatial_forward, train_from_datasets with spatial_shards=2, the 1280²
+    # peak memory and step ms; NCCL where there are two cards
+    spatial = spatial_phase(dev, smi)
+    log(f"[phase 4m done at {time.perf_counter() - t_start:.1f} s]")
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
@@ -5081,6 +5368,9 @@ def main() -> int:
             [r["nms_fixpoint"] for r in parallel["run"]["launches_per_rank"]],
         "launches_ddp_eval_per_rank":
             [r["nms_fixpoint"] for r in parallel["eval"]["launches_per_rank"]],
+        "launches_spatial_run_train_eval_per_rank":
+            [r["launches"]["nms_fixpoint"]
+             for r in spatial["run"]["per_rank"]],
         "op_ms_b32": ops_cost["nms_fixpoint B=32 N=1024"],
         "max_abs_err": max_abs_err,
         "shape": [32, 1024, 4],
@@ -5132,6 +5422,8 @@ def main() -> int:
         "launches_rcnn_train": rcnn_train["run_train"]["launches"]["nms_mask"],
         "launches_ddp_rcnn_steps_per_rank":
             [r["nms_mask"] for r in parallel["rcnn"]["launches_per_rank"]],
+        "launches_spatial_rcnn_steps_per_rank":
+            [r["nms_mask"] for r in spatial["rcnn"]["launches_per_rank"]],
         "largest_n_checked": max(v["padded_n"] for v in
                                  rcnn["nms_mask_large_n"].values()),
         "max_n": rcnn["nms_mask_max_n"],
@@ -5163,6 +5455,8 @@ def main() -> int:
             rcnn_train["run_train"]["launches"]["iou_matrix"],
         "launches_ddp_rcnn_steps_per_rank":
             [r["iou_matrix"] for r in parallel["rcnn"]["launches_per_rank"]],
+        "launches_spatial_rcnn_steps_per_rank":
+            [r["iou_matrix"] for r in spatial["rcnn"]["launches_per_rank"]],
         "op_ms": ops_cost["iou_matrix 1024x25200"],
         "max_abs_err": max(iou_err,
                            rcnn_train["iou_assigner"]["max_abs_err"]),
@@ -5229,6 +5523,7 @@ def main() -> int:
     log(json.dumps({"int8": int8}))
     log(json.dumps({"native_loader": native}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"spatial": spatial}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 dataclass per experiment, loaded by path via the CLI. The dataclasses are
 the reference's field for field (the experiment files beside this one are
 its files with their imports pointed here), so a config means the same in
-both packages; fields of parts not ported yet are carried and unused. Fields
+both packages. Fields
 mirror the reference's experiment-table columns (model / mosaic p / lr /
 epochs / bs / img size, README.md:71-154) plus the knobs its ablations used
 (focal-loss variants, DropBlock, frozen backbone, decoupled head, RoIPool).

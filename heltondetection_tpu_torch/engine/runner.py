@@ -17,9 +17,12 @@ for both families, each in float or W8A8 int8 (``eval.int8``,
 ``test.int8``: ``_int8_quant_tree`` and ``ops/quant.py``). More than one
 process (``torchrun``) trains data-parallel and evaluates a stride of the
 val set on each rank, merged at rank 0; one process with several cards
-evaluates and serves over all of them (``parallel/mesh.py``). The one part
-not ported raises ``NotImplementedError`` naming its ROADMAP item:
-``train.spatial_shards`` (A14b).
+evaluates and serves over all of them (``parallel/mesh.py``).
+``train.spatial_shards`` = sp > 1 splits each image's H rows over sp of
+those processes as well, a (processes/sp × sp) data × spatial layout
+(``parallel/spatial.py``), for both families; the reference's refusals
+of it are :func:`_check_spatial`'s. The port does all that the JAX
+package's runner does.
 
 Where ``train.native_loader`` is set (every config's default) and the C++
 loader core builds (``native/loader_core.cpp``: g++ with the OpenCV and
@@ -520,20 +523,61 @@ def _eval_artifacts(cfg: ExperimentConfig, ds, det, model: Model) -> None:
 
 
 def _check_train_config(cfg: ExperimentConfig) -> None:
-    """Raise for the train options that are not ported (naming their
-    ROADMAP item) or that the reference refuses."""
+    """Raise for the train options that the reference refuses, in its
+    words: ``multi_scale`` for FasterRCNN, and for ``spatial_shards`` > 1
+    :func:`_check_spatial`'s."""
     mc, tc = cfg.model, cfg.train
-    if tc.spatial_shards > 1:
-        # the reference refuses spatial_shards with device_aug too
-        raise NotImplementedError("train.spatial_shards (the image's H "
-                                  "axis sharded over devices, with a halo "
-                                  "exchange) is not ported yet (ROADMAP "
-                                  "A14b)")
     if mc.family == "faster_rcnn" and tc.multi_scale:
         raise ValueError(
             "train.multi_scale is a yolov5 feature (the two-stage proposal "
             "and sampling budgets are tuned per resolution: train separate "
             "faster_rcnn configs per size instead)")
+    if tc.spatial_shards > 1:
+        _check_spatial(cfg, process_count())
+
+
+def _check_spatial(cfg: ExperimentConfig, n_dev: int) -> None:
+    """The reference's checks of ``train.spatial_shards`` = sp > 1 over
+    ``n_dev`` ranks (one rank a device): the host loader only (no
+    ``device_aug``), no ``multi_scale``, more than one process, ranks that
+    divide by sp and a batch that divides by the data axis, an
+    ``img_size`` that splits every pyramid level evenly, and
+    ``grad_accum`` micro-batches that divide the data axis."""
+    mc, tc = cfg.model, cfg.train
+    sp = tc.spatial_shards
+    if tc.multi_scale:
+        raise ValueError("multi_scale does not compose with "
+                         "spatial_shards (per-bucket H splits)")
+    if tc.device_aug and mc.family != "faster_rcnn":
+        raise ValueError("spatial_shards composes with the host loader "
+                         "path, not device_aug (tile layouts differ)")
+    if n_dev == 1:
+        # the reference's one process holds several devices; here a rank
+        # is a device, and one process never trains unsharded in silence
+        raise ValueError(
+            f"spatial_shards={sp} needs one process a device (torchrun "
+            f"--nproc_per_node=N with N divisible by {sp}); this is one "
+            "process")
+    if n_dev % sp or tc.batch_size % (n_dev // sp):
+        raise ValueError(
+            f"spatial_shards={sp} needs devices ({n_dev}) divisible by "
+            f"it and batch_size ({tc.batch_size}) divisible by "
+            f"the data axis ({n_dev // sp})")
+    # coarsest pyramid stride: 32 for the YOLO P3-P5 head, 64 for the
+    # FasterRCNN P2-P6 pyramid (P6 rows must also split evenly)
+    max_stride = 64 if mc.family == "faster_rcnn" else 32
+    if mc.img_size % (sp * max_stride):
+        raise ValueError(
+            f"img_size {mc.img_size} must divide by "
+            f"spatial_shards*{max_stride} = {sp * max_stride} so every "
+            "pyramid level splits evenly")
+    accum = max(int(getattr(tc, "grad_accum", 1)), 1)
+    if accum > 1 and (tc.batch_size // accum) % (n_dev // sp):
+        # each micro-batch must itself shard over the data axis
+        raise ValueError(
+            f"grad_accum={accum} micro-batches of "
+            f"{tc.batch_size // accum} don't divide the data axis "
+            f"({n_dev // sp} devices)")
 
 
 def _with_xyxy(s: Dict) -> Dict:
@@ -620,7 +664,11 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     all-gather (start epoch, step, parameter checksum) and raise on a
     resume disagreement (a work dir that is not shared, or one rank on an
     incompatible checkpoint); the early stop is rank 0's decision,
-    broadcast to all.
+    broadcast to all. With ``train.spatial_shards`` = sp > 1 the N ranks
+    form an (N/sp data × sp spatial) layout (``parallel/spatial.py``):
+    the sp ranks of a data rank load the same rows and each trains on its
+    band of their H rows (:func:`_check_spatial` refuses what the
+    reference refuses, one process among it).
 
     Two environment variables, as in the reference:
 
@@ -702,14 +750,18 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     if is_rcnn:
         pipe = _XyxyTargets(pipe)
         keys = ("image", "gt_boxes_xyxy", "gt_cls", "gt_mask")
+    # under spatial sharding the spatial group's ranks load the same rows
+    # (whole images: the step keeps each rank's band)
+    sp = tc.spatial_shards
+    n_data = nproc // sp
     loader = TrainLoader(pipe, tc.batch_size, seed=tc.seed,
                          num_workers=tc.num_workers, device=dev, keys=keys,
-                         shard=(pid, nproc))
-    if nproc > 1 and (tc.batch_size // nproc) % accum:
+                         shard=(pid // sp, n_data))
+    if n_data > 1 and (tc.batch_size // n_data) % accum:
         raise ValueError(
             f"grad_accum={accum} does not divide each rank's "
-            f"{tc.batch_size // nproc} rows of batch_size {tc.batch_size} "
-            f"over {nproc} processes")
+            f"{tc.batch_size // n_data} rows of batch_size {tc.batch_size} "
+            f"over {n_data} processes")
     steps_per_epoch = loader.steps_per_epoch()
     if steps_per_epoch < 1:
         raise ValueError(
@@ -727,7 +779,7 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     if is_rcnn:
         rng = torch.Generator(dev).manual_seed(tc.seed + 1)
         step_fn = make_rcnn_train_step(use_ema=tc.ema, accum_steps=accum,
-                                       seed=tc.seed)
+                                       seed=tc.seed, spatial_shards=sp)
     else:
         loss_cfg = YoloLossConfig(num_classes=nc,
                                   img_size=cfg.model.img_size,
@@ -736,7 +788,8 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
                                   anchors=_cfg_anchors(cfg))
         model.packed_train = True    # the same weights, the loss's layout
         base_step = make_train_step(loss_cfg, use_ema=tc.ema,
-                                    accum_steps=accum, seed=tc.seed)
+                                    accum_steps=accum, seed=tc.seed,
+                                    spatial_shards=sp)
         augmented = _device_augment(cfg, dev, (pid, nproc)) \
             if device_aug else None
         sized = None
@@ -797,8 +850,13 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     if nproc > 1:
         _resume_agreement(start_epoch, state)
         replicate(model)            # rank 0's weights, checked on every rank
-        logger.info("data-parallel over %d processes (rank %d, %s)", nproc,
-                    pid, dev)
+        if sp > 1:
+            logger.info("data-parallel x spatial over %d x %d processes "
+                        "(rank %d: data %d, spatial %d, %s)", n_data, sp,
+                        pid, pid // sp, pid % sp, dev)
+        else:
+            logger.info("data-parallel over %d processes (rank %d, %s)",
+                        nproc, pid, dev)
     logger.info("training %s: %d epochs x %d steps on %s", cfg.name,
                 cfg.train.epochs, steps_per_epoch, dev)
     trace_dir = os.environ.get("HELTON_PROFILE_DIR")

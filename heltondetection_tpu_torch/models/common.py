@@ -27,6 +27,11 @@ the reference's hooks:
 
 A model holds those submodules only in the copy ``ops/quant.attach_quant``
 makes; the float model is never changed.
+
+Under spatial sharding (``parallel/spatial.py``: ``module.spatial`` set on
+the trunk by the train step or ``spatial_forward``) every float operation
+with a window on H, the convolutions (:func:`conv2d`) and SPPF's pools,
+first takes its halo rows from the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from heltondetection_tpu_torch.ops.int8_conv import int8_conv2d
 from heltondetection_tpu_torch.parallel.mesh import all_reduce_sum_grad
+from heltondetection_tpu_torch.parallel.spatial import windowed
 
 # The calibration pass's recorder: {module: {name: (2, C) stats}} while
 # calibration_mode() is active, else None. A contextvar, so no model code
@@ -390,14 +396,26 @@ def checkpointed(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
                                           _held_stats(module)))
 
 
+def conv2d(owner: nn.Module, conv: nn.Conv2d, x: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv``'s convolution of ``x`` with its weight cast to ``x``'s
+    dtype (and ``bias``, already cast, or none), its H halo taken first
+    where a spatial shard is active on ``owner``
+    (``parallel.spatial.windowed``): the one place every float
+    convolution of the models goes through."""
+    k = conv.dilation[0] * (conv.kernel_size[0] - 1) + 1
+    x, pad_h = windowed(owner, x, k, conv.stride[0], conv.padding[0])
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    (pad_h, conv.padding[1]), conv.dilation, conv.groups)
+
+
 class CastConv2d(nn.Conv2d):
     """A conv whose float32 weight and bias are cast to the dtype of its
     input where it runs (flax's ``nn.Conv(dtype=…)``)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+        return conv2d(self, self, x, bias)
 
 
 class CastLinear(nn.Linear):
@@ -419,7 +437,7 @@ def conv_bn(owner: nn.Module, conv_name: str, x: torch.Tensor
     q = _quant_of(conv)
     if q is not None:
         return q(x)
-    x = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    x = conv2d(owner, conv, x)
     return owner._modules[conv_name.replace("conv", "bn")](x)
 
 
@@ -449,9 +467,7 @@ class ConvBnAct(nn.Module):
             x = q(x)
             x = silu_as_reference(x) if self.act else x
         else:
-            c = self.conv
-            x = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding,
-                         c.dilation, c.groups)
+            x = conv2d(self, self.conv, x)
             x = F.silu(self.bn(x)) if self.act else self.bn(x)
         sow(self, "out_amax", x)
         return x
@@ -529,7 +545,8 @@ class SPPF(nn.Module):
         if isinstance(v, QT):
             pooled = F.max_pool2d(v.i8.to(torch.bfloat16), self.pool, 1, p)
             return QT(pooled.to(torch.int8), v.scale, v.dtype)
-        return F.max_pool2d(v, self.pool, 1, p)
+        v, pad_h = windowed(self, v, self.pool, 1, p, float("-inf"))
+        return F.max_pool2d(v, self.pool, 1, (pad_h, p))
 
     def forward(self, x):
         x = self.cv1(x)

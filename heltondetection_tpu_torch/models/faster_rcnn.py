@@ -48,13 +48,14 @@ import torch.nn.functional as F
 from heltondetection_tpu_torch.models.backbones import build_backbone
 from heltondetection_tpu_torch.models.common import CastConv2d, CastLinear
 from heltondetection_tpu_torch.models.dropblock import DropBlock
-from heltondetection_tpu_torch.models.necks import FPN, PAFPNv8
+from heltondetection_tpu_torch.models.necks import FPN, PAFPNv8, p6
 from heltondetection_tpu_torch.ops.anchors import rpn_pyramid_anchors
 from heltondetection_tpu_torch.ops.boxes import (clip_boxes, decode_deltas,
                                                  encode_deltas, iou_matrix)
 from heltondetection_tpu_torch.ops.nms import _topk, batched_nms
 from heltondetection_tpu_torch.ops.roi_align import multilevel_roi_align
 from heltondetection_tpu_torch.parallel.mesh import rank_rows
+from heltondetection_tpu_torch.parallel.spatial import gather_rows
 
 
 class RCNNConfig(NamedTuple):
@@ -175,7 +176,20 @@ class FasterRCNN(nn.Module):
     as NCHW tensors, RPN objectness (B, N), RPN deltas (B, N, 4));
     :meth:`run_box_head` pools the proposals and runs the box head. The
     full inference is :func:`faster_rcnn_infer`. Parameters are float32;
-    ``dtype`` is the compute dtype."""
+    ``dtype`` is the compute dtype.
+
+    Under spatial sharding (``spatial``, set on the model and its trunk by
+    the train step or ``parallel.spatial.spatial_forward``) the input is a
+    band of H rows: the backbone and the neck run on the band, and
+    :meth:`features` gathers P2–P5 over the spatial group and takes P6 from
+    the whole P5 (so P5's band may have an odd number of rows). Everything
+    after it (the RPN, the proposals, RoIAlign, the assigners, the box
+    head) runs on the whole pyramid, alike on every rank of the group: it
+    reads rows anywhere in the image, and the pyramid has to be whole for
+    RoIAlign anyway, so the RPN head runs there too, with no halo of its
+    own."""
+
+    spatial = None
 
     def __init__(self, cfg: RCNNConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -199,7 +213,12 @@ class FasterRCNN(nn.Module):
 
     def features(self, images: torch.Tensor) -> List[torch.Tensor]:
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        return self.neck(self.backbone(x)[-4:])
+        pyr = self.neck(self.backbone(x)[-4:])
+        if self.spatial is None:
+            return pyr
+        # P6 from the whole P5: the neck's, a view of the band, goes unused
+        pyr = [gather_rows(p, self.spatial) for p in pyr[:-1]]
+        return pyr + [p6(pyr[-1])]
 
     def forward(self, images: torch.Tensor):
         pyr = self.features(images)

@@ -1,7 +1,13 @@
 """Necks; counterpart of heltondetection_tpu/models/necks.py: the YOLOv5
 PAFPN, and FasterRCNN's classic FPN and YOLOv8-style PAFPN, both with 256
 output channels and a P6 level for the RPN (a 1x1 max-pool of stride 2,
-i.e. every other row and column of the last level). Tensors are NCHW."""
+i.e. every other row and column of the last level). Tensors are NCHW.
+
+Under spatial sharding (``parallel/spatial.py``) the necks run on a band of
+H rows: their 3x3 convolutions take their halos (``models.common.
+conv2d``), and nearest upsampling, 1x1 convolutions and concatenation are
+local. FasterRCNN takes its P6 from the gathered P5 instead of the band's
+(``models/faster_rcnn.py``)."""
 
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from heltondetection_tpu_torch.models.common import (C3, CastConv2d,
                                                      scaled, upsample2x)
 
 
-def _p6(x: torch.Tensor) -> torch.Tensor:
+def p6(x: torch.Tensor) -> torch.Tensor:
     """flax ``max_pool(x, (1, 1), strides=(2, 2))``: a 1x1 window takes
     every other row and column."""
     return x[:, :, ::2, ::2]
@@ -78,7 +84,7 @@ class FPN(nn.Module):
             lat[i] = lat[i] + upsample2x(lat[i + 1])
         outs = [getattr(self, f"smooth{i}")(lat[i]) for i in range(self.n)]
         if self.extra_pool:
-            outs.append(_p6(outs[-1]))
+            outs.append(p6(outs[-1]))
         return outs
 
 
@@ -116,5 +122,5 @@ class PAFPNv8(nn.Module):
             outs.append(getattr(self, f"out{i}")(
                 torch.cat([x, td[i]], dim=1)))
         if self.extra_pool:
-            outs.append(_p6(outs[-1]))
+            outs.append(p6(outs[-1]))
         return outs

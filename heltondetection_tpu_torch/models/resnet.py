@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from heltondetection_tpu_torch.models.common import (BatchNorm2d, autopad,
                                                      checkpointed, conv_bn)
 from heltondetection_tpu_torch.models.dropblock import DropBlock
+from heltondetection_tpu_torch.parallel.spatial import windowed
 
 RESNET_STAGES = {
     "resnet18": ((2, 2, 2, 2), "basic"),
@@ -140,7 +141,8 @@ class ResNet(nn.Module):
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         remat = self.remat and self.training and torch.is_grad_enabled()
         x = F.relu(conv_bn(self, "stem_conv", x))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x, pad_h = windowed(self, x, 3, 2, 1, float("-inf"))
+        x = F.max_pool2d(x, 3, 2, (pad_h, 1))
         if self.frozen_stages >= 1:
             x = x.detach()
         outs = []

@@ -25,6 +25,7 @@ from heltondetection_tpu_torch.models.cspdarknet import VARIANTS, CSPDarknet
 from heltondetection_tpu_torch.models.necks import PAFPNv5
 from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
                                                    YOLOV5_STRIDES, yolo_grid)
+from heltondetection_tpu_torch.parallel.spatial import gather_rows
 
 
 def packed_cls_width(num_classes: int) -> int:
@@ -51,7 +52,16 @@ class YOLOv5(nn.Module):
     CSPDarknet`); neither adds a parameter. ``backbone`` other than
     ``"cspdarknet"`` (the v6.1 backbone of the depth and width multiples)
     is a name of the backbone registry (``models.backbones``), whose last
-    three features feed the neck."""
+    three features feed the neck.
+
+    Under spatial sharding (``spatial``, set on the model and its trunk by
+    the train step or ``parallel.spatial.spatial_forward``) the input is a
+    band of H rows: the detect convolutions run on the band and their
+    outputs are gathered over the spatial group (the packed train head's
+    objectness and feature rows; the packed serve head's features), so the
+    outputs are the whole image's."""
+
+    spatial = None
 
     def __init__(self, num_classes: int = 80, depth_multiple: float = 0.33,
                  width_multiple: float = 0.50, num_anchors: int = 3,
@@ -98,17 +108,25 @@ class YOLOv5(nn.Module):
         # emit int8 still hands the (float) head float features
         feats = [q_dequant(f, self.dtype) for f in feats]
         a = self.num_anchors
+        mesh = self.spatial
         outs = []
         for i, f in enumerate(feats):
             f = f.float()
             if self.packed_train and not self.packed_head:
                 conv = getattr(self, f"detect{i}")
-                outs.append(packed_train_head(f, conv.weight, conv.bias,
-                                              self.num_classes, a))
+                pobj, f2, wblocks, (h, w) = packed_train_head(
+                    f, conv.weight, conv.bias, self.num_classes, a)
+                if mesh is not None:      # one gather of both (H-major rows)
+                    both = gather_rows(torch.cat([pobj, f2], -1), mesh, 1)
+                    pobj, f2 = both[..., :a], both[..., a:]
+                    h *= mesh.n_spatial
+                outs.append((pobj, f2, wblocks, (h, w)))
                 continue
             if not self.packed_head:
-                outs.append(getattr(self, f"detect{i}")(f).permute(0, 2, 3, 1))
+                y = gather_rows(getattr(self, f"detect{i}")(f), mesh)
+                outs.append(y.permute(0, 2, 3, 1))
                 continue
+            f = gather_rows(f, mesh)
             # 1x1 convs as (B·HW, cin) matmuls, one per anchor, so each
             # candidate row is born CP wide in flat (a-major) row order
             b, cin, h, w = f.shape

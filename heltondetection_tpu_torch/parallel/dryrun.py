@@ -9,12 +9,15 @@ gloo on the CPU, whatever :func:`~heltondetection_tpu_torch.parallel.mesh.
 init_distributed` picks on cards) that each run (1) the YOLOv5
 data-parallel train step and (2) the FasterRCNN two-stage one on their
 rows of one seeded global batch; every rank must end with the same weights
-and finite losses. Then one process splits (3) the packed YOLOv5
-serve/eval step and (4) FasterRCNN inference over a mesh of ``n`` devices
-(the local cards, or ``n`` entries of the CPU), each against the same step
-on one device. The reference's 2-D data × spatial programs are not ported
-(ROADMAP A14b). Small shapes (width 0.125, 64²): it checks the programs
-run and agree, not their speed.
+and finite losses; for ``n`` ≥ 4 and even, the same ranks then run (5)
+the YOLOv5 and (6) the FasterRCNN train step on a (n/2 data × 2 spatial)
+layout (``parallel/spatial.py``: each image's H rows split over two
+ranks, with the halo exchanges and the gathers), with the same checks.
+Then one process splits (3) the packed YOLOv5 serve/eval step and (4)
+FasterRCNN inference over a mesh of ``n`` devices (the local cards, or
+``n`` entries of the CPU), each against the same step on one device.
+Small shapes (width 0.125, 64²): it checks the programs run and agree,
+not their speed.
 """
 
 from __future__ import annotations
@@ -67,19 +70,31 @@ def _batch(b: int, rcnn: bool, dev) -> Dict[str, torch.Tensor]:
 
 
 def _rank_steps(rank: int, n: int, device: Optional[str]) -> Dict:
-    """One rank: the YOLOv5 and FasterRCNN train steps on its rows."""
+    """One rank: the YOLOv5 and FasterRCNN train steps on its rows, then,
+    for n ≥ 4 and even, :func:`spatial_rank_steps`."""
+    out = _dp_steps(n, device)
+    if n >= 4 and n % 2 == 0:
+        out.update(spatial_rank_steps(rank, n, device))
+    return out
+
+
+def _dp_steps(n: int, device: Optional[str], spatial: int = 1) -> Dict:
+    """The YOLOv5 and FasterRCNN train steps of this rank: 2 images a
+    data rank, ``spatial`` ranks to an image."""
     from heltondetection_tpu_torch.device import resolve_device
     from heltondetection_tpu_torch.train.schedule import make_optimizer
     from heltondetection_tpu_torch.train.trainer import (
         create_train_state, make_rcnn_train_step, make_train_step)
     from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
     dev = resolve_device(device)
+    n_data = n // spatial
     out = {}
     for name, model, step, rng in (
             ("yolo", _yolo(),
-             make_train_step(YoloLossConfig(num_classes=NC, img_size=IMG)),
+             make_train_step(YoloLossConfig(num_classes=NC, img_size=IMG),
+                             spatial_shards=spatial),
              None),
-            ("rcnn", _rcnn(), make_rcnn_train_step(),
+            ("rcnn", _rcnn(), make_rcnn_train_step(spatial_shards=spatial),
              torch.Generator(dev).manual_seed(5))):
         model = model.to(dev)
         if name == "yolo":
@@ -87,11 +102,24 @@ def _rank_steps(rank: int, n: int, device: Optional[str]) -> Dict:
         M.replicate(model)
         state = create_train_state(model, make_optimizer(
             model, 1e-3, total_steps=10, warmup_steps=1), rng=rng)
-        state, metrics = step(state, M.shard_batch(
-            _batch(2 * n, name == "rcnn", dev)))
+        batch = _batch(2 * n_data, name == "rcnn", dev)
+        state, metrics = step(state, {
+            k: M.rank_rows(v, n_data, M.process_index() // spatial)
+            for k, v in batch.items()})
         out[name] = {"total": float(metrics["total"]),
                      "checksum": M.state_checksum(model)}
     return out
+
+
+def spatial_rank_steps(rank: int, n: int, device: Optional[str]) -> Dict:
+    """(5) and (6) of one rank of ``n`` (≥ 4, even): the YOLOv5 and
+    FasterRCNN train steps on a (n/2 × 2) data × spatial layout, 2 images
+    a data rank, each rank on its band of their rows; keyed
+    ``yolo_spatial`` and ``rcnn_spatial``."""
+    if n < 4 or n % 2:
+        raise ValueError(f"the data x spatial programs need an even n >= 4, "
+                         f"not {n}")
+    return {f"{k}_spatial": v for k, v in _dp_steps(n, device, 2).items()}
 
 
 def _mesh_steps(n: int, device: Optional[str]) -> Dict:
@@ -147,13 +175,15 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None,
     ranks = M.run_ranks(_rank_steps, n_devices, (n_devices, device),
                         backend="gloo" if device == "cpu" else None,
                         timeout_s=timeout_s)
-    for name in ("yolo", "rcnn"):
+    for name in ranks[0]:
         vals = {r[name]["checksum"] for r in ranks}
         if len(vals) != 1 or not all(np.isfinite(r[name]["total"])
                                      for r in ranks):
-            raise AssertionError(f"{name}-dp over {n_devices} ranks: "
+            raise AssertionError(f"{name} over {n_devices} ranks: "
                                  f"{[r[name] for r in ranks]}")
-        print(f"dryrun_multichip({n_devices}): {name}-dp ok, "
+        what = (f"{name[:-8]}-2d data{n_devices // 2}xspatial2"
+                if name.endswith("_spatial") else f"{name}-dp")
+        print(f"dryrun_multichip({n_devices}): {what} ok, "
               f"loss={ranks[0][name]['total']:.4f}")
     out = {"ranks": ranks, "mesh": _mesh_steps(n_devices, device)}
     for name in ("yolo_serve", "rcnn_infer"):

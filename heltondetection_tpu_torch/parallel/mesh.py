@@ -55,6 +55,7 @@ _OTHER_MARKERS = ("TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID")
 MARKERS = _SIZE_MARKERS + _RANK_MARKERS + _ADDR_MARKERS + _OTHER_MARKERS
 
 DEFAULT_TIMEOUT_S = 600.0     # every collective of a group gives up after
+_timeout_s = DEFAULT_TIMEOUT_S    # the process group's, for its subgroups
 
 
 # -- processes --------------------------------------------------------------
@@ -198,6 +199,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
                          "or set MASTER_ADDR and MASTER_PORT")
     local = _local_rank(rank)
     chosen = choose_backend(_local_size(world), backend)
+    global _timeout_s
+    _timeout_s = timeout_s
     if torch.cuda.is_available():
         torch.cuda.set_device(local % torch.cuda.device_count()
                               if chosen == "gloo" else local)
@@ -214,6 +217,12 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return world > 1
 
 
+def group_timeout_s() -> float:
+    """The timeout the process group was joined with, in seconds (what its
+    subgroups get too)."""
+    return _timeout_s
+
+
 def shutdown() -> None:
     """Leave the process group, if this process is in one."""
     if dist.is_available() and dist.is_initialized():
@@ -222,13 +231,14 @@ def shutdown() -> None:
 
 # -- collectives --------------------------------------------------------------
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks (a new tensor; ``t`` itself where
-    there is one process). No gradient flows through it."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``t`` over the ranks, or over ``group``'s (a new tensor;
+    ``t`` itself where there is one process). No gradient flows through
+    it."""
     if process_count() == 1:
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 

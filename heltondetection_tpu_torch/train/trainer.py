@@ -20,6 +20,16 @@ steps and updates its EMA with the same gradient and the weights stay
 identical. With ``accum_steps`` the ranks' interleaved
 micro-batch i is together the global batch's micro-batch i (the rank's
 rows must divide by ``accum_steps``).
+
+With ``spatial_shards`` = sp > 1 the ranks form a (data × spatial) layout
+(``parallel/spatial.py``): a rank gets its data rank's rows of the global
+batch (whole images) and the step keeps its band of H rows. The loss and
+the draws take (data rank, n_data) and the data group; BatchNorm still
+sums over the world, whose ranks hold disjoint pieces; the model's trunk
+runs on the band and the model gathers after it, for the step only, so
+the in-loop eval and the EMA model run on whole images. The gradients are
+averaged over the world as above, which is the data mean (the spatial
+module's docstring says why).
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ from heltondetection_tpu_torch.parallel.mesh import (average_gradients,
                                                      average_metrics,
                                                      process_count,
                                                      process_index)
+from heltondetection_tpu_torch.parallel.spatial import (
+    SpatialMesh, create_spatial_mesh, shard_images_spatial,
+    spatially_sharded)
 from heltondetection_tpu_torch.train.schedule import Optimizer, global_norm
 from heltondetection_tpu_torch.train.yolo_loss import (YoloLossConfig,
                                                        yolo_loss,
@@ -97,7 +110,7 @@ def grad_global_norm(model: torch.nn.Module) -> torch.Tensor:
                        if p.grad is not None)
 
 
-def _loss_on(model, batch, loss_cfg: YoloLossConfig, world: int):
+def _loss_on(model, batch, loss_cfg: YoloLossConfig, world: int, group):
     img = batch["image"]
     if img.dtype == torch.uint8:
         img = img.float() / 255.0           # normalization inside the step
@@ -105,7 +118,7 @@ def _loss_on(model, batch, loss_cfg: YoloLossConfig, world: int):
     # the packed train head gives per-level tuples, the standard one maps
     loss_impl = yolo_loss_packed if isinstance(outs[0], tuple) else yolo_loss
     return loss_impl(outs, batch["gt_boxes"], batch["gt_cls"],
-                     batch["gt_mask"], loss_cfg, world=world)
+                     batch["gt_mask"], loss_cfg, world=world, group=group)
 
 
 def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
@@ -130,42 +143,69 @@ def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
 
 
 @contextlib.contextmanager
-def _data_parallel(model: torch.nn.Module, shard: Tuple[int, int]):
-    """``shard`` (rank, world) on the model's DropBlock and BatchNorm2d
-    modules for the step's forwards and backward (remat's recomputed
-    forwards included), and one process's (0, 1) again after it, so no
-    other forward on one rank waits on a collective."""
-    mods = [m for m in model.modules()
-            if isinstance(m, (BatchNorm2d, DropBlock))]
-    for m in mods:
-        m.shard = shard
+def _sharded(model: torch.nn.Module, data: Tuple[int, int],
+             world: Tuple[int, int], mesh: Optional[SpatialMesh]):
+    """For the step's forwards and backward (remat's recomputed forwards
+    included): ``data`` (data rank, n_data) on the model's DropBlocks,
+    ``world`` (rank, world) on its BatchNorm2d modules and the spatial
+    ``mesh`` on its trunk; one process's (0, 1) and no mesh again after
+    it, so no other forward on one rank waits on a collective."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    drops = [m for m in model.modules() if isinstance(m, DropBlock)]
+    for m in bns:
+        m.shard = world
+    for m in drops:
+        m.shard = data
     try:
-        yield
+        with spatially_sharded(model, mesh):
+            yield
     finally:
-        for m in mods:
+        for m in bns + drops:
             m.shard = (0, 1)
+
+
+def spatial_layout(spatial_shards: int) -> Optional[SpatialMesh]:
+    """The (data × spatial) layout of the process group's ranks for
+    ``spatial_shards`` (None for 1). It raises where there is one process
+    (a rank is a device: one process never trains unsharded in place of
+    a sharded run) or the ranks do not divide by it."""
+    if spatial_shards <= 1:
+        return None
+    n = process_count()
+    if n == 1 or n % spatial_shards:
+        raise ValueError(f"spatial_shards={spatial_shards} needs a process "
+                         f"group whose ranks divide by it, one rank a "
+                         f"device; this is {n} process(es)")
+    return create_spatial_mesh(n // spatial_shards, spatial_shards)
 
 
 def _step(state: TrainState, loss_of: Callable, batch: Dict,
           accum_steps: int, batch_scaled: bool, use_ema: bool,
-          seed: int) -> Tuple[TrainState, Dict]:
+          seed: int, spatial_shards: int) -> Tuple[TrainState, Dict]:
     """One step of either family: gradients (accumulated over
-    ``accum_steps`` micro-batches; ``loss_of(micro, i, shard)``), their
-    global norm, the optimizer and the EMA."""
+    ``accum_steps`` micro-batches; ``loss_of(micro, i, data shard,
+    data group)``), their global norm, the optimizer and the EMA."""
     model = state.model
     model.train()
     reseed_dropblock(model, seed, state.step)
     model.zero_grad(set_to_none=True)      # frozen parameters too
-    shard = (process_index(), process_count())
+    world = (process_index(), process_count())
+    mesh = spatial_layout(spatial_shards)
+    data, group = world, None
+    if mesh is not None:
+        data, group = mesh.data_shard, mesh.data_group
+        batch = dict(batch, image=shard_images_spatial(
+            batch["image"], mesh, data_axis=False))
     rows = next(iter(batch.values())).shape[0]
-    if shard[1] > 1 and rows % accum_steps:
+    if data[1] > 1 and rows % accum_steps:
         # the ranks' micro-batch i must together be the global batch's
         # interleaved micro-batch i: b_rank % accum == 0, which is the
         # reference's (batch / accum) % devices == 0
         raise ValueError(f"grad_accum={accum_steps} does not divide this "
                          f"rank's {rows} rows")
-    with _data_parallel(model, shard):
-        metrics = _accum_grads(lambda micro, i: loss_of(micro, i, shard),
+    with _sharded(model, data, world, mesh):
+        metrics = _accum_grads(lambda micro, i: loss_of(micro, i, data,
+                                                        group),
                                batch, accum_steps, batch_scaled)
     # data parallel: the gradients and metrics averaged over the ranks
     # before the clip, so every rank clips and steps the same gradient
@@ -180,7 +220,8 @@ def _step(state: TrainState, loss_of: Callable, batch: Dict,
 
 
 def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
-                    accum_steps: int = 1, seed: int = 0
+                    accum_steps: int = 1, seed: int = 0,
+                    spatial_shards: int = 1
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``train_step(state, batch) → (state, metrics)``; the state is updated
     in place and returned.
@@ -192,18 +233,19 @@ def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
     tensors on the device: reading one waits for the step. The gradients
     stay in ``.grad`` until the next step. A model with DropBlock draws
     from generators seeded by (``seed``, step), the reference's fold of the
-    step into its dropout key."""
+    step into its dropout key. ``spatial_shards`` > 1 splits each image's H
+    rows over that many ranks (the module docstring)."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        return _step(state, lambda micro, i, shard: _loss_on(
-            state.model, micro, loss_cfg, shard[1]),
-            batch, accum_steps, True, use_ema, seed)
+        return _step(state, lambda micro, i, shard, group: _loss_on(
+            state.model, micro, loss_cfg, shard[1], group),
+            batch, accum_steps, True, use_ema, seed, spatial_shards)
 
     return train_step
 
 
 def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
-                         seed: int = 0
+                         seed: int = 0, spatial_shards: int = 1
                          ) -> Callable[..., Tuple[TrainState, Dict]]:
     """``train_step(state, batch, draws=None) → (state, metrics)`` of a
     FasterRCNN (its ``cfg``), the contract of :func:`make_train_step` with
@@ -216,7 +258,8 @@ def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
     mean, so with ``accum_steps`` > 1 gradients and metrics are averaged
     over the micro-batches. The metrics are ``rpn_obj``, ``rpn_reg``,
     ``cls``, ``box``, ``total`` and ``grad_norm``. A head DropBlock draws
-    from generators seeded by (``seed``, step)."""
+    from generators seeded by (``seed``, step). ``spatial_shards`` as in
+    :func:`make_train_step`."""
     def train_step(state: TrainState, batch: Dict,
                    draws: Union[torch.Generator, Sequence, None] = None
                    ) -> Tuple[TrainState, Dict]:
@@ -224,7 +267,7 @@ def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
         if draws is None:
             draws = state.rng
 
-        def loss_of(micro: Dict, i: int, shard: Tuple[int, int]):
+        def loss_of(micro: Dict, i: int, shard: Tuple[int, int], group):
             img = micro["image"]
             if img.dtype == torch.uint8:
                 img = img.float() / 255.0      # normalization inside the step
@@ -234,7 +277,7 @@ def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
                                     draws=d, shard=shard)
 
         return _step(state, loss_of, batch, accum_steps, False, use_ema,
-                     seed)
+                     seed, spatial_shards)
 
     return train_step
 

@@ -143,7 +143,7 @@ def _one_hot(cls: torch.Tensor, nc: int) -> torch.Tensor:
 
 def _level_terms(sel: torch.Tensor, box_lanes: int, obj_logits: torch.Tensor,
                  obj_index: torch.Tensor, t: Dict, cfg: YoloLossConfig,
-                 nc: int, lvl: int, world: int):
+                 nc: int, lvl: int, world: int, group=None):
     """One level's (box, obj, cls) terms. ``sel`` (B, M, A, O, ·) holds the
     candidate logits with the box lanes at ``box_lanes`` and the classes in
     the other slice (``[5:]`` standard, ``[:nc]`` packed); ``obj_logits``
@@ -155,7 +155,7 @@ def _level_terms(sel: torch.Tensor, box_lanes: int, obj_logits: torch.Tensor,
     # of them, so the ranks' terms average to the global batch's term
     n_pos = vf.sum()
     if world > 1:
-        n_pos = all_reduce_sum(n_pos)
+        n_pos = all_reduce_sum(n_pos, group)
     n_pos = torch.clamp(n_pos, min=1.0) / world
     pxy = torch.sigmoid(sel[..., box_lanes:box_lanes + 2]) * 2.0 - 0.5
     pwh = (torch.sigmoid(sel[..., box_lanes + 2:box_lanes + 4]) * 2.0) ** 2 \
@@ -209,13 +209,16 @@ def _total(lbox, lobj, lcls, cfg: YoloLossConfig, nc: int, nl: int, b: int,
 def yolo_loss(raw_outputs: Sequence[torch.Tensor], gt_cxcywh: torch.Tensor,
               gt_cls: torch.Tensor, gt_mask: torch.Tensor,
               cfg: YoloLossConfig, anchors=YOLOV5_ANCHORS,
-              strides=YOLOV5_STRIDES, world: int = 1
+              strides=YOLOV5_STRIDES, world: int = 1, group=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total YOLOv5 loss over all levels and its terms.
 
     ``raw_outputs``: per level (B, H, W, A·(5+C)) logits. The total is
     batch-scaled as Ultralytics' (per-element means, then total × B).
-    ``world``: the data-parallel ranks whose rows make the global batch."""
+    ``world``: the data-parallel ranks whose rows make the global batch;
+    ``group``: their process group (None: every rank of the process
+    group; under spatial sharding, the data group, whose ranks hold
+    different images)."""
     if cfg.anchors is not None:
         anchors = cfg.anchors
     nc = cfg.num_classes
@@ -234,7 +237,7 @@ def yolo_loss(raw_outputs: Sequence[torch.Tensor], gt_cxcywh: torch.Tensor,
                 + t["cell_x"][:, :, None, :]) * a_n + ai       # (B, M, A, O)
         sel = p.reshape(-1, 5 + nc)[flat]                      # (B,M,A,O,5+C)
         bx, ob, cl = _level_terms(sel, 0, p[..., 4], flat, t, cfg, nc, lvl,
-                                  world)
+                                  world, group)
         lbox, lobj = lbox + bx, lobj + ob
         if cl is not None:
             lcls = lcls + cl
@@ -244,7 +247,7 @@ def yolo_loss(raw_outputs: Sequence[torch.Tensor], gt_cxcywh: torch.Tensor,
 def yolo_loss_packed(packed_outputs, gt_cxcywh: torch.Tensor,
                      gt_cls: torch.Tensor, gt_mask: torch.Tensor,
                      cfg: YoloLossConfig, anchors=YOLOV5_ANCHORS,
-                     strides=YOLOV5_STRIDES, world: int = 1
+                     strides=YOLOV5_STRIDES, world: int = 1, group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`yolo_loss` on the packed train head's outputs, the same math.
 
@@ -277,7 +280,7 @@ def yolo_loss_packed(packed_outputs, gt_cxcywh: torch.Tensor,
         ai = torch.arange(a_n, device=f2.device)[None, None, :, None]
         flat = (bi * (h * w) + cell[:, :, None, :]) * a_n + ai  # (B,M,A,O)
         bx, ob, cl = _level_terms(sel, nc, pobj, flat, t, cfg, nc, lvl,
-                                  world)
+                                  world, group)
         lbox, lobj = lbox + bx, lobj + ob
         if cl is not None:
             lcls = lcls + cl

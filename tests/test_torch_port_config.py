@@ -217,8 +217,10 @@ def test_load_detector_matches_jax_make_detector(tiny_variant, tmp_path):
 def test_not_ported_parts_raise_by_name(tmp_path):
     """Inference builds for both families and every registry backbone;
     training FasterRCNN and YOLOv5 over a registry backbone passes the
-    train config check, more than one device (A14) still raises by name;
-    an unknown family or backbone is a ValueError."""
+    train config check, and ``spatial_shards`` (A14b) in one process meets
+    the reference's refusal (a rank is a device: one process has none to
+    split the rows over); an unknown family or backbone is a
+    ValueError."""
     from heltondetection_tpu_torch.models.faster_rcnn import FasterRCNN
     mc = p_base.ModelConfig
     rcnn = runner.build_model(mc(family="faster_rcnn"), 20)
@@ -229,7 +231,7 @@ def test_not_ported_parts_raise_by_name(tmp_path):
         cfg = p_base.ExperimentConfig(model=mc(**change))
         runner._check_train_config(cfg)
         cfg.train.spatial_shards = 2
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(ValueError, match="one process"):
             runner._check_train_config(cfg)
     with pytest.raises(ValueError, match="unknown backbone"):
         runner.build_model(mc(backbone="resnet7"), 20)

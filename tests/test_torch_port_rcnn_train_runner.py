@@ -205,8 +205,9 @@ def test_cli_trains_faster_rcnn_and_warns_from_scratch(work, monkeypatch):
     crops): it trains, checkpoints and warns that the frozen stem and
     FrozenBN assume a pretrained backbone; the published FasterRCNN
     configs and the backbone swap pass the train config check;
-    ``multi_scale`` is refused for FasterRCNN and ``spatial_shards`` still
-    raises, naming A14."""
+    ``multi_scale`` is refused for FasterRCNN, and ``spatial_shards`` in
+    one process with the reference's refusal (it runs over ranks:
+    tests/test_torch_port_spatial.py)."""
     from synth_data import build_coco_dataset
     monkeypatch.setattr(runner, "TBWriter", _TB)
     ann, imgs = build_coco_dataset(str(work / "coco"), n_images=2,
@@ -248,7 +249,7 @@ def test_cli_trains_faster_rcnn_and_warns_from_scratch(work, monkeypatch):
         runner._check_train_config(cfg)
     cfg.train.multi_scale = ()
     cfg.train.spatial_shards = 2
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="one process"):
         runner.train_from_datasets(cfg, [], None, device="cpu")
 
 

@@ -332,20 +332,26 @@ def test_entry_points_raise_without_cuda(entry, tmp_path, monkeypatch):
         call()
 
 
-@pytest.mark.parametrize("change, item", [
-    ({"model.backbone": "cspdarknet_l", "train.spatial_shards": 2}, "A14"),
+@pytest.mark.parametrize("change, refusal", [
+    ({"model.backbone": "cspdarknet_l", "train.spatial_shards": 2},
+     "one process"),
     ({"train.backbone_pretrain": "r50.pth", "train.spatial_shards": 2},
-     "A14"),
-    ({"train.spatial_shards": 2}, "A14"),
-    ({"train.spatial_shards": 2, "train.device_aug": True}, "A14"),
-    ({"model.family": "faster_rcnn", "train.spatial_shards": 2}, "A14"),
-])
-def test_not_ported_train_options_raise(change, item, tmp_path):
+     "one process"),
+    ({"train.spatial_shards": 2}, "one process"),
+    ({"train.spatial_shards": 2, "train.device_aug": True}, "device_aug"),
+    ({"model.family": "faster_rcnn", "train.spatial_shards": 2},
+     "one process"),
+], ids=[f"change{i}-A14" for i in range(5)])
+def test_not_ported_train_options_raise(change, refusal, tmp_path):
+    """``train.spatial_shards`` (A14b, ported) is refused where the
+    reference refuses it, before any data is read: with ``device_aug``,
+    and in one process, whose ranks are no devices to split the rows
+    over (tests/test_torch_port_spatial.py runs it over four ranks)."""
     cfg = p_base.ExperimentConfig(work_dir=str(tmp_path))
     for key, value in change.items():
         part, field = key.split(".")
         setattr(getattr(cfg, part), field, value)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=refusal):
         runner.train_from_datasets(cfg, [], None, device="cpu")
 
 
