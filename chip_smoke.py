@@ -348,6 +348,30 @@ fails:
          one process's;
       5. over NCCL, 4m.1's steps where there are two cards or more (else
          "not run: 1 card");
+4n. the overfit-AP protocol at full width (the reference's
+    tests/test_e2e.py and tests/test_quant.py bars, on weights trained on
+    the card), through the user tool that scores Ultralytics weights:
+      1. 16 seeded 480×640 frames written as a COCO layout (an instances
+         JSON and empty image files; the frames stay in memory and are
+         served to data/readers.py:imread_rgb): uint8 noise with 4–12
+         objects of 16–200 px that do not overlap, each painted in its
+         category's colour, in 80 categories;
+      2. yolov5_s_coco_640 (full width, 80 classes, 640², bf16, random
+         weights from seed 0) trained on them at B=16 for OVERFIT_STEPS
+         steps, AdamW at OVERFIT_LR with OVERFIT_WARMUP warmup steps, no
+         mosaic, HSV or flip: the pipeline's epochs 0 and 1 must hold the
+         same samples, and the steps then run on that batch; the loss must
+         fall below OVERFIT_LOSS_RATIO of its start;
+      3. the EMA weights written by export_yolov5_state_dict and
+         save_torch_state_dict as an Ultralytics v6.1 .pt;
+      4. that file scored by tools/eval_ultralytics_weights.main (batch
+         16) in float and with --int8 layer and --int8 flow, on the card
+         (each run must launch nms_mask) and with --device cpu. On the
+         card float AP must exceed OVERFIT_MIN_AP and each int8 mode's
+         AP50 and AP must be at most INT8_AP50_DROP and INT8_AP_DROP below
+         float's; card against CPU, the float dets by match_dets at phase
+         4j's bounds, each int8 mode's AP and AP50 within
+         OVERFIT_INT8_CPU_TOL; the dets apart in each mode are counted;
 5. times on the card: each kernel through its wrapper by CUDA events over
    back-to-back calls (host launch cost included), its device time by
    kernel name from torch.profiler, and its plain version, beside the
@@ -373,8 +397,11 @@ fails:
 
 The lines before the last are the serve, eval, serving, train,
 train_configs, rcnn, rcnn_train, export_test_artifacts, int8,
-native_loader, parallel and spatial lines, the
-kernels line, {"kernels": [...]} (nms_fixpoint's entry counts the in-loop
+native_loader, parallel, spatial and overfit lines, the
+kernels line, {"kernels": [...]} (nms_mask's launches are the unfused
+eval's and phase 4n's card runs of the tool, apart as
+launches_unfused_eval and launches_overfit_tool; nms_fixpoint's entry
+counts the in-loop
 evals' launches as launches_train_eval and
 launches_train_eval_visdrone_1280 and run_test's as
 launches_run_test_yolov5, nms_mask's the fused route's above N=2400 as
@@ -1160,13 +1187,14 @@ def write_visdrone(root: str, n: int, seed: int) -> dict:
 
 
 class RecordedDetEvals:
-    """Replaces utils.cocoeval.DetEval with a subclass that keeps every
-    instance the run makes, so the in-loop eval's ground truth can be read
-    after the run."""
+    """Replaces ``module.DetEval`` (utils.cocoeval's by default) with a
+    subclass that keeps every instance the run makes, so the in-loop
+    eval's ground truth, or a tool's dets, can be read after the run."""
 
-    def __init__(self):
-        from heltondetection_tpu_torch.utils import cocoeval
-        self.module, self.orig, self.made = cocoeval, cocoeval.DetEval, []
+    def __init__(self, module=None):
+        if module is None:
+            from heltondetection_tpu_torch.utils import cocoeval as module
+        self.module, self.orig, self.made = module, module.DetEval, []
         made = self.made
 
         class Recorded(self.orig):
@@ -1174,7 +1202,7 @@ class RecordedDetEvals:
                 super().__init__(*a, **k)
                 made.append(self)
 
-        cocoeval.DetEval = Recorded
+        module.DetEval = Recorded
 
     def close(self):
         self.module.DetEval = self.orig
@@ -4493,6 +4521,316 @@ def spatial_phase(dev, smi: str) -> dict:
     return out
 
 
+# 4n: the overfit-AP protocol at full width, through the oracle tool ----------
+
+OVERFIT_CONFIG = os.path.join(CONFIGS, "yolov5_s_coco_640.py")
+OVERFIT_FRAMES, OVERFIT_HW = 16, (480, 640)
+OVERFIT_OBJECTS, OVERFIT_PX = (4, 12), (16, 200)   # a frame's count; sides
+# the reference's protocol (tests/test_e2e.py:25-68): AdamW 5e-3 with 20
+# warmup steps, no mosaic, HSV or flip, 16 boxes a frame at most
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_WARMUP, OVERFIT_MAX_BOXES = 300, 5e-3, 20, 16
+# the reference's bars: the loss below 0.2 of its first value and float AP
+# > 0.5 (tests/test_e2e.py:56, 68); each int8 mode's AP50 at most 0.02 and
+# AP at most 0.15 below float's (tests/test_quant.py:409-420)
+OVERFIT_LOSS_RATIO, OVERFIT_MIN_AP = 0.2, 0.5
+INT8_AP50_DROP, INT8_AP_DROP = 0.02, 0.15
+# card against CPU on the trained weights: the float dets by match_dets at
+# the bounds phase 4j holds the float32 serve step's dets to (boxes 2 px,
+# scores 0.02, at most 5 % unmatched; the count at phase 4g's 0.05 px and
+# 1e-4 is recorded beside them); each int8 mode's AP and AP50 within 0.02
+OVERFIT_INT8_CPU_TOL = 0.02
+
+
+def write_coco(root: str, n: int, seed: int):
+    """Write a COCO layout under root (an instances JSON and images/) for n
+    seeded frames of OVERFIT_HW: uint8 noise with 4–12 objects of 16–200 px
+    a side that do not overlap, each painted in its category's colour, in
+    80 categories (ids 1–80). The image files are empty: the card's
+    machine promises no image decoder, so the frames stay in memory,
+    returned as (ann file, image dir, {path: (H, W, 3) uint8})."""
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    palette = rng.integers(0, 256, (80, 3)).astype(np.uint8)
+    h, w = OVERFIT_HW
+    lo, hi = OVERFIT_PX
+    images, anns, frames = [], [], {}
+    for i in range(n):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        placed = []
+        for _ in range(int(rng.integers(OVERFIT_OBJECTS[0],
+                                        OVERFIT_OBJECTS[1] + 1))):
+            while True:                     # 12 boxes of ≤ 200² fit easily
+                bw, bh = (int(v) for v in rng.integers(lo, hi + 1, 2))
+                x = int(rng.integers(0, w - bw + 1))
+                y = int(rng.integers(0, h - bh + 1))
+                if all(x >= x2 or x + bw <= x1 or y >= y2 or y + bh <= y1
+                       for x1, y1, x2, y2 in placed):
+                    break
+            placed.append((x, y, x + bw, y + bh))
+            c = int(rng.integers(0, 80))
+            img[y:y + bh, x:x + bw] = palette[c]
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": c + 1,
+                         "bbox": [float(x), float(y), float(bw), float(bh)],
+                         "area": float(bw * bh), "iscrowd": 0})
+        name = f"{i:012d}.jpg"
+        path = os.path.join(img_dir, name)
+        open(path, "wb").close()
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+        frames[path] = img
+    ann = os.path.join(root, "instances_overfit.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c + 1, "name": f"class{c}"}
+                                  for c in range(80)]}, f)
+    return ann, img_dir, frames
+
+
+def deteval_arrays(det_eval, img_ids):
+    """A DetEval's dets as fixed-shape (boxes xywh, scores, classes, valid)
+    numpy arrays of (len(img_ids), K), the layout match_dets takes."""
+    per = {i: [] for i in img_ids}
+    for (img, cls), dets in det_eval._dts.items():
+        per[img] += [(box, score, cls) for box, score in dets]
+    k = max(1, max(len(v) for v in per.values()))
+    n = len(img_ids)
+    boxes, scores = np.zeros((n, k, 4)), np.zeros((n, k))
+    classes, valid = np.full((n, k), -1), np.zeros((n, k), bool)
+    for r, i in enumerate(img_ids):
+        for j, (box, score, cls) in enumerate(per[i]):
+            boxes[r, j], scores[r, j], classes[r, j] = box, score, cls
+            valid[r, j] = True
+    return boxes, scores, classes, valid
+
+
+def leaves(tree: dict) -> list:
+    """The arrays of a nested dict, in the order of its sorted keys."""
+    return [x for k in sorted(tree) for x in
+            (leaves(tree[k]) if isinstance(tree[k], dict)
+             else [np.asarray(tree[k])])]
+
+
+def overfit_phase(dev, smi: str) -> dict:
+    """Phase 4n: the reference's overfit protocol on the published
+    yolov5_s_coco_640 (full width, 80 classes, 640², bf16) on the card:
+    300 steps on 16 painted frames written as a COCO layout, the EMA
+    weights exported as an Ultralytics v6.1 ``.pt``, and that file scored
+    by ``tools/eval_ultralytics_weights.py``'s ``main`` in float and both
+    int8 modes, on the card and on the CPU. Fails on the reference's bars
+    or where the card and the CPU disagree beyond the stated bounds.
+
+    The card's machine has no image decoder, so the phase replaces only
+    the reader module's ``imread_rgb`` with a lookup of the in-memory
+    frames by path (:func:`write_coco`); the annotation file is parsed by
+    ``COCODataset``'s own code."""
+    import io
+    import tempfile
+    import torch
+    from heltondetection_tpu_torch.configs.base import load_config
+    from heltondetection_tpu_torch.data import readers
+    from heltondetection_tpu_torch.data.augment import TrainPipeline
+    from heltondetection_tpu_torch.data.loader import TrainLoader
+    from heltondetection_tpu_torch.kernels import (launch_counts,
+                                                   reset_launch_counts)
+    from heltondetection_tpu_torch.models.common import init_weights
+    from heltondetection_tpu_torch.models.cspdarknet import VARIANTS
+    from heltondetection_tpu_torch.models.yolov5 import YOLOv5
+    from heltondetection_tpu_torch.ops import quant
+    from heltondetection_tpu_torch.tools import eval_ultralytics_weights
+    from heltondetection_tpu_torch.train.schedule import make_optimizer
+    from heltondetection_tpu_torch.train.trainer import (create_train_state,
+                                                         make_train_step)
+    from heltondetection_tpu_torch.train.yolo_loss import YoloLossConfig
+    from heltondetection_tpu_torch.utils.torch_convert import (
+        export_yolov5_state_dict, save_torch_state_dict)
+
+    mc = load_config(OVERFIT_CONFIG).model
+    depth_m, width_m = VARIANTS[mc.variant]
+    size, nc = mc.img_size, mc.num_classes
+    dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
+    out = {"card": smi, "config": os.path.basename(OVERFIT_CONFIG),
+           "frames": OVERFIT_FRAMES, "frame_hw": list(OVERFIT_HW),
+           "steps": OVERFIT_STEPS, "lr": OVERFIT_LR,
+           "warmup_steps": OVERFIT_WARMUP}
+    read_orig = readers.imread_rgb
+    work = tempfile.TemporaryDirectory()
+    try:
+        ann, imgs, frames = write_coco(work.name, OVERFIT_FRAMES, 70)
+        readers.imread_rgb = frames.__getitem__
+        ds = readers.COCODataset(ann, imgs)
+        out["objects"] = sum(len(ds.anns_by_img[i]) for i in ds.ids)
+
+        # a. train: the pipeline without augmentation gives every epoch
+        # the same 16 samples (only their order moves), checked once; the
+        # steps then run on that batch, cached on the card
+        pipe = TrainPipeline(ds, size, mosaic_p=0.0, hsv=False, flip_p=0.0,
+                             max_boxes=OVERFIT_MAX_BOXES, seed=0)
+        loader = TrainLoader(pipe, OVERFIT_FRAMES, num_workers=8,
+                             device=dev)
+        t0 = time.perf_counter()
+        epochs = [list(loader.epoch(e)) for e in (0, 1)]
+        out["pipeline_s_2_epochs"] = time.perf_counter() - t0
+
+        def by_image(batch):
+            img = batch["image"].cpu()
+            order = sorted(range(img.shape[0]),
+                           key=lambda r: img[r].numpy().tobytes())
+            return {k: v.cpu()[order] for k, v in batch.items()}
+
+        a, b = (by_image(e[0]) for e in epochs)
+        if any(len(e) != 1 for e in epochs) or \
+                not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("the pipeline without augmentation gave "
+                                 "another batch in epoch 1")
+        batch = epochs[0][0]
+        model = YOLOv5(nc, depth_m, width_m, dtype=dtype, packed_train=True)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = model.to(dev, memory_format=torch.channels_last)
+        state = create_train_state(model, make_optimizer(
+            model, OVERFIT_LR, total_steps=OVERFIT_STEPS,
+            warmup_steps=OVERFIT_WARMUP))
+        step = make_train_step(YoloLossConfig(num_classes=nc, img_size=size))
+        totals = []
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(OVERFIT_STEPS):
+            state, m = step(state, batch)
+            totals.append(m["total"])
+        end.record()
+        torch.cuda.synchronize()
+        totals = [float(t) for t in totals]
+        out["train_ms_per_step"] = start.elapsed_time(end) / OVERFIT_STEPS
+        out["loss"] = {str(s): totals[s - 1] for s in (1, 100, OVERFIT_STEPS)
+                       if s <= OVERFIT_STEPS}
+        out["loss_ratio"] = totals[-1] / totals[0]
+        log(f"4n train {mc.variant} {size}² {mc.dtype} B={OVERFIT_FRAMES}, "
+            f"{OVERFIT_STEPS} steps on {out['objects']} objects: loss "
+            f"{out['loss']}, {out['train_ms_per_step']:.2f} ms a step "
+            f"({smi})")
+        if not all(math.isfinite(t) for t in totals) or \
+                out["loss_ratio"] >= OVERFIT_LOSS_RATIO:
+            raise AssertionError(f"the overfit loss did not fall below "
+                                 f"{OVERFIT_LOSS_RATIO} of its start: "
+                                 f"{out['loss']}")
+
+        # b. export: the EMA weights as a user would hand them to the tool
+        weights = {k: v.detach().float().cpu() for k, v in
+                   {**model.state_dict(), **state.ema}.items()}
+        pt = os.path.join(work.name, f"yolov5{mc.variant}_overfit.pt")
+        save_torch_state_dict(pt, export_yolov5_state_dict(
+            weights, depth_multiple=depth_m))
+        out["pt_mb"] = os.path.getsize(pt) / 2 ** 20
+        del model, state, batch, epochs
+        torch.cuda.empty_cache()
+
+        # c. score through the tool, on the card and on the CPU; then the
+        # CPU again in each int8 mode with the card's calibration
+        # statistics, which parts the statistics' drift from the codes'
+        argv = ["--weights", pt, "--variant", mc.variant, "--ann", ann,
+                "--imgs", imgs, "--img-size", str(size),
+                "--batch", str(OVERFIT_FRAMES)]
+        runs, dets, amax = {}, {}, {}
+        calibrate = quant.calibrate_amax
+        plan = [(w, m) for w in ("card", "cpu")
+                for m in ("float", "layer", "flow")]
+        plan += [("cpu_card_stats", m) for m in ("layer", "flow")]
+        for where, mode in plan:
+            key = f"{where}_{mode}"
+            extra = ([] if mode == "float" else ["--int8", mode]) + \
+                ([] if where == "card" else ["--device", "cpu"])
+
+            def recorded(*a, key=key, **k):
+                amax[key] = calibrate(*a, **k)
+                return amax[key]
+
+            quant.calibrate_amax = (
+                (lambda *a, mode=mode, **k: amax[f"card_{mode}"])
+                if where == "cpu_card_stats" else recorded)
+            rec = RecordedDetEvals(eval_ultralytics_weights)
+            printed = io.StringIO()
+            try:
+                if where == "card":
+                    torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    stats = eval_ultralytics_weights.main(argv + extra)
+                if where == "card":
+                    torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = dict(launch_counts)
+            finally:
+                rec.close()
+                quant.calibrate_amax = calibrate
+            dets[key] = deteval_arrays(rec.made[0], ds.ids)
+            runs[key] = {"AP": stats["AP"], "AP50": stats["AP50"],
+                         "dets": int(dets[key][3].sum()),
+                         "launches": counts, "seconds": secs}
+            log(f"4n tool, {key}: {printed.getvalue().splitlines()[-2]}; "
+                f"{runs[key]['dets']} dets; launches {counts}; "
+                f"{secs:.2f} s")
+        out["runs"] = runs
+        out["launches_card"] = sum(runs[f"card_{m}"]["launches"]["nms_mask"]
+                                   for m in ("float", "layer", "flow"))
+        out["card_vs_cpu"] = {f"{m}{tag}": {
+            "misses": match_dets(dets[f"card_{m}"], dets[f"{cpu}_{m}"],
+                                 INT8_CPU_SCORE_TOL, INT8_CPU_BOX_TOL),
+            "misses_strict": match_dets(dets[f"card_{m}"], dets[f"{cpu}_{m}"],
+                                        RCNN_SCORE_TOL, RCNN_BOX_TOL),
+            "dets_card": runs[f"card_{m}"]["dets"],
+            "dets_cpu": runs[f"{cpu}_{m}"]["dets"]}
+            for m in ("float", "layer", "flow")
+            for cpu, tag in (("cpu", ""), ("cpu_card_stats", "_card_stats"))
+            if f"{cpu}_{m}" in runs}
+        # the two devices' calibration statistics: the largest difference
+        # of a statistic over the largest value of its tensor
+        out["calibration_card_vs_cpu"] = {m: max(
+            float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+            for a, b in zip(*(leaves(amax[f"{w}_{m}"])
+                              for w in ("card", "cpu"))))
+            for m in ("layer", "flow")}
+    finally:
+        readers.imread_rgb = read_orig
+        work.cleanup()
+
+    failures = []
+    flt = runs["card_float"]
+    if not flt["AP"] > OVERFIT_MIN_AP:
+        failures.append(f"float AP {flt['AP']:.4f} ≤ {OVERFIT_MIN_AP}")
+    for m in ("layer", "flow"):
+        q = runs[f"card_{m}"]
+        if not q["AP50"] >= flt["AP50"] - INT8_AP50_DROP:
+            failures.append(f"{m} AP50 {q['AP50']:.4f} below float's "
+                            f"{flt['AP50']:.4f} - {INT8_AP50_DROP}")
+        if not q["AP"] >= flt["AP"] - INT8_AP_DROP:
+            failures.append(f"{m} AP {q['AP']:.4f} below float's "
+                            f"{flt['AP']:.4f} - {INT8_AP_DROP}")
+        for k in ("AP", "AP50"):
+            gap = abs(q[k] - runs[f"cpu_{m}"][k])
+            if not gap <= OVERFIT_INT8_CPU_TOL:
+                failures.append(f"{m} {k} card {q[k]:.4f} against CPU "
+                                f"{runs[f'cpu_{m}'][k]:.4f}")
+    cmp = out["card_vs_cpu"]["float"]
+    if cmp["misses"] > INT8_CPU_MISS_SHARE * max(cmp["dets_cpu"], 1):
+        failures.append(f"float dets card vs CPU: {cmp['misses']} of "
+                        f"{cmp['dets_cpu']} unmatched")
+    if any(runs[f"card_{m}"]["launches"]["nms_mask"] < 1
+           for m in ("float", "layer", "flow")):
+        failures.append("the tool did not launch nms_mask on the card")
+    log(f"4n card vs CPU (match_dets at {INT8_CPU_BOX_TOL} px / "
+        f"{INT8_CPU_SCORE_TOL}; strict {RCNN_BOX_TOL} px / "
+        f"{RCNN_SCORE_TOL}): {out['card_vs_cpu']}; calibration statistics "
+        f"apart {out['calibration_card_vs_cpu']}; AP/AP50 " + ", ".join(
+            f"{k} {v['AP']:.4f}/{v['AP50']:.4f}" for k, v in runs.items()) +
+        f" ({smi})")
+    if failures:
+        raise AssertionError("4n: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5344,6 +5682,12 @@ def main() -> int:
     # peak memory and step ms; NCCL where there are two cards
     spatial = spatial_phase(dev, smi)
     log(f"[phase 4m done at {time.perf_counter() - t_start:.1f} s]")
+    # 4n. the overfit-AP protocol at full width: yolov5_s_coco_640 trained
+    # 300 steps on 16 painted frames, exported as an Ultralytics .pt and
+    # scored by tools/eval_ultralytics_weights in float and both int8
+    # modes, on the card and on the CPU
+    overfit = overfit_phase(dev, smi)
+    log(f"[phase 4n done at {time.perf_counter() - t_start:.1f} s]")
     kernels = [{
         "name": "nms_fixpoint", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_fixpoint.cu",
@@ -5391,7 +5735,10 @@ def main() -> int:
         "name": "nms_mask", "route": "cuda",
         "source": "heltondetection_tpu_torch/csrc/nms_mask.cu",
         "replaces": "heltondetection_tpu/ops/nms.py:145",
-        "launches": eval_counts["unfused"]["nms_mask"],
+        "launches": eval_counts["unfused"]["nms_mask"]
+        + overfit["launches_card"],
+        "launches_unfused_eval": eval_counts["unfused"]["nms_mask"],
+        "launches_overfit_tool": overfit["launches_card"],
         "launches_fused_route_n2401": c1["launches"]["nms_mask"],
         "launches_rcnn_infer": rcnn["infer"]["launches"]["nms_mask"],
         "launches_rcnn_eval": rcnn["eval"]["launches"]["nms_mask"],
@@ -5524,6 +5871,7 @@ def main() -> int:
     log(json.dumps({"native_loader": native}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"spatial": spatial}))
+    log(json.dumps({"overfit": overfit}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
