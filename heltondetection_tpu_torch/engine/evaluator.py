@@ -26,6 +26,7 @@ from heltondetection_tpu_torch.device import resolve_device
 from heltondetection_tpu_torch.models.yolov5 import YOLOv5, packed_copy
 from heltondetection_tpu_torch.ops.nms import _topk, batched_nms
 from heltondetection_tpu_torch.ops.postprocess import make_fused_postprocess
+from heltondetection_tpu_torch.utils import trace
 from heltondetection_tpu_torch.utils.cocoeval import DetEval, format_summary
 
 
@@ -78,16 +79,18 @@ def make_postprocess(num_classes: int, *, conf_thres: float = 0.001,
     del num_classes      # the width comes from ``cls``; kept for symmetry
 
     def post(boxes, obj, cls):
-        if multi_label:
-            cb, cs, cc = multilabel_candidates(
-                boxes, obj, cls, topk=pre_nms_topk, conf_thres=conf_thres)
-        else:
-            conf = obj[..., None] * cls
-            cb, cs = boxes, conf.amax(-1)
-            cc = torch.argmax(conf, dim=-1).to(torch.int32)
-        return batched_nms(cb, cs, cc, iou_thres=iou_thres,
-                           score_thres=conf_thres,
-                           pre_nms_topk=pre_nms_topk, max_det=max_det)
+        with trace.span("ops.postprocess", device=True):
+            if multi_label:
+                cb, cs, cc = multilabel_candidates(
+                    boxes, obj, cls, topk=pre_nms_topk,
+                    conf_thres=conf_thres)
+            else:
+                conf = obj[..., None] * cls
+                cb, cs = boxes, conf.amax(-1)
+                cc = torch.argmax(conf, dim=-1).to(torch.int32)
+            return batched_nms(cb, cs, cc, iou_thres=iou_thres,
+                               score_thres=conf_thres,
+                               pre_nms_topk=pre_nms_topk, max_det=max_det)
 
     return post
 
@@ -263,18 +266,23 @@ class Evaluator:
 
     def collect(self, batches: Iterable[Dict[str, Any]], det_eval) -> int:
         """Run every batch and add its dets to ``det_eval`` (anything with
-        ``add_det``), without summarizing; returns the images counted."""
+        ``add_det``), without summarizing; returns the images counted.
+        Spans: ``eval.dispatch`` and ``eval.accumulate`` (with its
+        ``eval.wait``), one each a batch."""
         n_img = 0
         pending = None
         for batch in batches:
-            out = self._dispatch(batch["image"])
+            with trace.span("eval.dispatch"):
+                out = self._dispatch(batch["image"])
             meta = (batch["img_id"], batch["scale"], batch["pad_x"],
                     batch["pad_y"], batch["orig_hw"])
             if pending is not None:
-                n_img += self._accumulate(det_eval, *pending)
+                with trace.span("eval.accumulate"):
+                    n_img += self._accumulate(det_eval, *pending)
             pending = (out, meta)
         if pending is not None:
-            n_img += self._accumulate(det_eval, *pending)
+            with trace.span("eval.accumulate"):
+                n_img += self._accumulate(det_eval, *pending)
         return n_img
 
     def _dispatch(self, images):
@@ -287,7 +295,8 @@ class Evaluator:
         """Wait for one batch's dets and add them to the DetEval. The
         letterbox inverse runs over the whole (B, K) block in one numpy
         pass."""
-        ob, os_, oc, ov = fetch_dets(out)
+        with trace.span("eval.wait"):
+            ob, os_, oc, ov = fetch_dets(out)
         img_ids, scale, pad_x, pad_y, orig_hw = meta
         s = np.asarray(scale, np.float32).reshape(-1, 1)
         px = np.asarray(pad_x, np.float32).reshape(-1, 1)

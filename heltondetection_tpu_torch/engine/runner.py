@@ -30,7 +30,8 @@ libjpeg development files), training and eval take the native pipelines
 of ``data/native_loader.py``; otherwise the Python pipelines of
 ``data/augment.py``. The log says which, and why when it is the Python
 one. ``HELTON_PROFILE_DIR`` and ``HELTON_DEBUG_NANS`` act on training as
-in the reference (:func:`train_from_datasets`).
+in the reference (:func:`train_from_datasets`); the profiler's trace also
+carries the port's spans (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from heltondetection_tpu_torch.parallel.mesh import (Mesh, all_gather_object,
                                                      process_index,
                                                      rank_rows, replicate)
 from heltondetection_tpu_torch.utils import ckpt as ckpt_io
+from heltondetection_tpu_torch.utils import trace
 from heltondetection_tpu_torch.utils.log import LOGGER, TBWriter, get_logger
 
 _log = logging.getLogger(LOGGER)
@@ -673,10 +675,17 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
     Two environment variables, as in the reference:
 
     * ``HELTON_PROFILE_DIR``: the epochs run under ``torch.profiler`` (CPU
-      activities, and CUDA's on the card), and its trace is written to
+      activities, and CUDA's on the card) with the port's tracer on in
+      profiler mode (``utils/trace.py``), and the trace is written to
       ``<dir>/train-<pid>.pt.trace.json`` when training ends, however it
-      ends. The profiler keeps every event of the run in memory: trace a
-      few steps, not a long run.
+      ends; the tracer is off again after it. The trace carries the
+      program's spans as user annotations: ``train.loader_wait`` (the
+      wait for each batch, which the epoch line's ``loader_wait_s`` sums),
+      ``train.step`` and its ``train.forward`` (with ``train.loss``),
+      ``train.backward``, ``train.allreduce``, ``train.optimizer`` and
+      ``train.ema``, and the in-loop eval's ``eval.*`` spans. The profiler
+      keeps every event of the run in memory: trace a few steps, not a
+      long run.
     * ``HELTON_DEBUG_NANS``: autograd's anomaly mode is on for the run
       (the previous setting is restored after), and each step's loss and
       logged metrics (the gradient norm among them) are checked finite,
@@ -868,6 +877,7 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
+        trace.enable(profiler=True)
     anomaly = torch.is_anomaly_enabled()
     if debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -889,6 +899,7 @@ def train_from_datasets(cfg: ExperimentConfig, train_ds, val_ds=None,
             torch.autograd.set_detect_anomaly(anomaly)
         tb.close()
         if profiler is not None:
+            trace.disable()
             profiler.stop()
             os.makedirs(trace_dir, exist_ok=True)
             path = os.path.join(trace_dir,
@@ -993,7 +1004,8 @@ def _train_epochs(cfg, loader, step_fn, state, tb, logger, start_epoch,
         with contextlib.closing(loader.epoch(epoch)) as batches:
             while True:
                 tw = time.perf_counter()
-                batch = next(batches, None)
+                with trace.span("train.loader_wait"):
+                    batch = next(batches, None)
                 wait += time.perf_counter() - tw
                 if batch is None:
                     break

@@ -3,7 +3,9 @@
 
 ``launch_counts`` holds one integer per kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a caller can reset the counts, run
-a path and show which kernels that path went through.
+a path and show which kernels that path went through. It is the port's one
+count of launches: the tracer (``utils/trace.py``) reports it as the
+``kernel.<name>`` counters of each ``take()``.
 """
 
 from __future__ import annotations

@@ -26,6 +26,7 @@ from heltondetection_tpu_torch.models.necks import PAFPNv5
 from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
                                                    YOLOV5_STRIDES, yolo_grid)
 from heltondetection_tpu_torch.parallel.spatial import gather_rows
+from heltondetection_tpu_torch.utils import trace
 
 
 def packed_cls_width(num_classes: int) -> int:
@@ -102,6 +103,10 @@ class YOLOv5(nn.Module):
                 self.add_module(f"detect{i}", nn.Conv2d(cin, no, 1))
 
     def forward(self, x: torch.Tensor):
+        with trace.span("yolov5.forward", device=True):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         feats = self.neck(self.backbone(x)[-3:])
         # the int8 flow's head-boundary guard: a tree whose last neck convs

@@ -34,6 +34,7 @@ from heltondetection_tpu_torch.ops.anchors import (YOLOV5_ANCHORS,
                                                    YOLOV5_STRIDES)
 from heltondetection_tpu_torch.ops.nms import (_MAX_WH, _topk,
                                                nms_mask_fixpoint_batched)
+from heltondetection_tpu_torch.utils import trace
 
 
 @functools.lru_cache(maxsize=16)
@@ -265,11 +266,12 @@ def make_fused_postprocess(num_classes: int, *, conf_thres: float = 0.001,
     def post(raw):
         packed = isinstance(raw[0], (tuple, list))
         select = fused_select_decode_packed if packed else fused_select_decode
-        cb, cs, cc = select(
-            raw, num_classes, topk=pre_nms_topk, conf_thres=conf_thres,
-            max_cls_per_box=max_cls_per_box, anchors=anchors,
-            strides=strides)
-        return nms_sorted_candidates(cb, cs, cc, iou_thres=iou_thres,
-                                     max_det=max_det)
+        with trace.span("ops.postprocess", device=True):
+            cb, cs, cc = select(
+                raw, num_classes, topk=pre_nms_topk, conf_thres=conf_thres,
+                max_cls_per_box=max_cls_per_box, anchors=anchors,
+                strides=strides)
+            return nms_sorted_candidates(cb, cs, cc, iou_thres=iou_thres,
+                                         max_det=max_det)
 
     return post

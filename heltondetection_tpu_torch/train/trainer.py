@@ -57,6 +57,7 @@ from heltondetection_tpu_torch.train.schedule import Optimizer, global_norm
 from heltondetection_tpu_torch.train.yolo_loss import (YoloLossConfig,
                                                        yolo_loss,
                                                        yolo_loss_packed)
+from heltondetection_tpu_torch.utils import trace
 
 
 @dataclass
@@ -117,8 +118,9 @@ def _loss_on(model, batch, loss_cfg: YoloLossConfig, world: int, group):
     outs = model(img)
     # the packed train head gives per-level tuples, the standard one maps
     loss_impl = yolo_loss_packed if isinstance(outs[0], tuple) else yolo_loss
-    return loss_impl(outs, batch["gt_boxes"], batch["gt_cls"],
-                     batch["gt_mask"], loss_cfg, world=world, group=group)
+    with trace.span("train.loss"):
+        return loss_impl(outs, batch["gt_boxes"], batch["gt_cls"],
+                         batch["gt_mask"], loss_cfg, world=world, group=group)
 
 
 def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
@@ -134,8 +136,10 @@ def _accum_grads(loss_of: Callable, batch: Dict, accum_steps: int,
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum_steps):
         micro = {k: v[i::accum_steps] for k, v in batch.items()}
-        loss, metrics = loss_of(micro, i)
-        (loss if batch_scaled else loss / accum_steps).backward()
+        with trace.span("train.forward"):
+            loss, metrics = loss_of(micro, i)
+        with trace.span("train.backward"):
+            (loss if batch_scaled else loss / accum_steps).backward()
         for k, v in metrics.items():
             sums[k] = sums.get(k, 0) + v.detach()
     return {k: v if batch_scaled and k == "total" else v / accum_steps
@@ -184,7 +188,10 @@ def _step(state: TrainState, loss_of: Callable, batch: Dict,
           seed: int, spatial_shards: int) -> Tuple[TrainState, Dict]:
     """One step of either family: gradients (accumulated over
     ``accum_steps`` micro-batches; ``loss_of(micro, i, data shard,
-    data group)``), their global norm, the optimizer and the EMA."""
+    data group)``), their global norm, the optimizer and the EMA. Spans
+    (under the caller's ``train.step``): ``train.forward`` (with
+    ``train.loss``) and ``train.backward`` a micro-batch,
+    ``train.allreduce``, ``train.optimizer`` and ``train.ema``."""
     model = state.model
     model.train()
     reseed_dropblock(model, seed, state.step)
@@ -209,12 +216,15 @@ def _step(state: TrainState, loss_of: Callable, batch: Dict,
                                batch, accum_steps, batch_scaled)
     # data parallel: the gradients and metrics averaged over the ranks
     # before the clip, so every rank clips and steps the same gradient
-    average_gradients(list(model.parameters()))
-    metrics = average_metrics(metrics)
-    metrics["grad_norm"] = grad_global_norm(model)
-    state.optimizer.step()
+    with trace.span("train.allreduce"):
+        average_gradients(list(model.parameters()))
+        metrics = average_metrics(metrics)
+    with trace.span("train.optimizer", device=True):
+        metrics["grad_norm"] = grad_global_norm(model)
+        state.optimizer.step()
     if use_ema and state.ema is not None:
-        update_ema(state.ema, model, state.step)
+        with trace.span("train.ema", device=True):
+            update_ema(state.ema, model, state.step)
     state.step += 1
     return state, metrics
 
@@ -237,9 +247,10 @@ def make_train_step(loss_cfg: YoloLossConfig, use_ema: bool = True,
     rows over that many ranks (the module docstring)."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        return _step(state, lambda micro, i, shard, group: _loss_on(
-            state.model, micro, loss_cfg, shard[1], group),
-            batch, accum_steps, True, use_ema, seed, spatial_shards)
+        with trace.span("train.step"):
+            return _step(state, lambda micro, i, shard, group: _loss_on(
+                state.model, micro, loss_cfg, shard[1], group),
+                batch, accum_steps, True, use_ema, seed, spatial_shards)
 
     return train_step
 
@@ -272,12 +283,14 @@ def make_rcnn_train_step(use_ema: bool = True, accum_steps: int = 1,
             if img.dtype == torch.uint8:
                 img = img.float() / 255.0      # normalization inside the step
             d = draws if isinstance(draws, torch.Generator) else draws[i]
-            return faster_rcnn_loss(model, img, micro["gt_boxes_xyxy"],
-                                    micro["gt_cls"], micro["gt_mask"],
-                                    draws=d, shard=shard)
+            with trace.span("train.loss"):
+                return faster_rcnn_loss(model, img, micro["gt_boxes_xyxy"],
+                                        micro["gt_cls"], micro["gt_mask"],
+                                        draws=d, shard=shard)
 
-        return _step(state, loss_of, batch, accum_steps, False, use_ema,
-                     seed, spatial_shards)
+        with trace.span("train.step"):
+            return _step(state, loss_of, batch, accum_steps, False, use_ema,
+                         seed, spatial_shards)
 
     return train_step
 

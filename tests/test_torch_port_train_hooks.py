@@ -29,6 +29,7 @@ from heltondetection_tpu_torch.engine import runner
 from heltondetection_tpu_torch.models import common as p_common
 from heltondetection_tpu_torch.models import cspdarknet as p_csp
 from heltondetection_tpu_torch.train import trainer as p_trainer
+from heltondetection_tpu_torch.utils import trace
 
 SIZE = 64
 NC = 3
@@ -201,8 +202,9 @@ def test_rcnn_native_batches_carry_xyxy_boxes(tmp_path, monkeypatch):
 
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
     """``HELTON_PROFILE_DIR``: one step under ``torch.profiler``, its Chrome
-    trace in the directory naming the forward's convolutions; the steps
-    are not checked for NaNs without ``HELTON_DEBUG_NANS``."""
+    trace in the directory naming the forward's convolutions and the
+    program's spans (the tracer on for the run and off after it); the
+    steps are not checked for NaNs without ``HELTON_DEBUG_NANS``."""
     def unexpected(*a):
         raise AssertionError("a step was checked without HELTON_DEBUG_NANS")
 
@@ -215,6 +217,10 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
     assert name == f"train-{os.getpid()}.pt.trace.json"
     events = json.loads((trace_dir / name).read_text())["traceEvents"]
     assert any(e.get("name") == "aten::conv2d" for e in events)
+    names = {e.get("name") for e in events}
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer", "train.loader_wait"} <= names
+    assert not trace.enabled()
 
 
 def test_debug_nans_names_the_poisoned_step(tmp_path, monkeypatch):
