@@ -9,12 +9,14 @@ Two routes end in the same ``Evaluator``: ``forward_fn`` (e.g.
 by :func:`make_postprocess`, whose NMS is the ``nms_mask`` CUDA kernel; or
 ``step_fn`` = :func:`make_packed_serve_step`, whose NMS is the
 ``nms_fixpoint`` kernel. Only the fixed-shape (B, max_det) det arrays
-cross to the host.
+cross to the host. On a CUDA device the step of each batch shape is
+replayed as one CUDA graph (:class:`GraphedStep`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -23,11 +25,17 @@ import torch
 import torch.nn.functional as F
 
 from heltondetection_tpu_torch.device import resolve_device
+from heltondetection_tpu_torch.kernels import launch_counts
 from heltondetection_tpu_torch.models.yolov5 import YOLOv5, packed_copy
 from heltondetection_tpu_torch.ops.nms import _topk, batched_nms
 from heltondetection_tpu_torch.ops.postprocess import make_fused_postprocess
 from heltondetection_tpu_torch.utils import trace
 from heltondetection_tpu_torch.utils.cocoeval import DetEval, format_summary
+from heltondetection_tpu_torch.utils.log import LOGGER
+
+_log = logging.getLogger(LOGGER)
+
+MAX_GRAPHS = 4      # shapes a GraphedStep tracks: an eval has one
 
 
 def multilabel_candidates(boxes: torch.Tensor, obj: torch.Tensor,
@@ -135,6 +143,135 @@ def make_packed_serve_step(model: YOLOv5, num_classes: int, *,
     return step
 
 
+class _Graph:
+    """One captured step: the graph, its static input, its outputs (the
+    graph's own buffers) and the kernel launches its capture counted."""
+
+    __slots__ = ("graph", "x", "out", "launches")
+
+    def __init__(self, graph, x, out, launches: Dict[str, int]):
+        self.graph, self.x, self.out, self.launches = graph, x, out, launches
+
+    def replay(self, x, captured: bool = False):
+        """Copy ``x`` into the static input and replay; right after the
+        capture (``captured``) the input is in place and the launches are
+        counted already."""
+        with trace.span("eval.graph", device=True):
+            if not captured:
+                self.x.copy_(x)
+            self.graph.replay()
+        if not captured:
+            for k, v in self.launches.items():
+                launch_counts[k] += v
+        trace.counts["eval.graph_replay"] += 1
+        return self.out
+
+
+_SEEN, _EAGER = "seen", "eager"
+_capture_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """One side stream a device for every capture, so that the libraries'
+    per-stream state (cuBLAS's workspace) is made once."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    return _capture_streams[device]
+
+
+def _drop_failed_capture(device, pool) -> None:
+    """After a capture that did not end: stop sending allocations to its
+    memory pool and let the allocator free the pool. PyTorch's graph
+    object does neither for a capture that failed; these are its private
+    hooks, so where one is missing or refuses, the pool stays reserved."""
+    for hook in ("_cuda_endAllocateToPool", "_cuda_releasePool"):
+        try:
+            getattr(torch._C, hook)(device.index, pool)
+        except Exception:       # private: absent, or another signature
+            pass                # here; or already done by the graph
+
+
+def _capture(step: Callable, x: torch.Tensor):
+    """Capture ``step`` on a static copy of ``x`` into a CUDA graph on a
+    side stream: a :class:`_Graph`, not yet replayed, or ``_EAGER`` where
+    the capture raised (the launches it counted are taken back)."""
+    dev = x.device
+    cur, side = torch.cuda.current_stream(dev), _capture_stream(dev)
+    static_x = x.clone()
+    before = dict(launch_counts)
+    graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+    side.wait_stream(cur)
+    ended = False
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = step(static_x)
+            finally:
+                graph.capture_end()
+                ended = True
+    except Exception as e:      # a step that reads the host, or any refusal
+        if not ended:
+            _drop_failed_capture(dev, pool)
+        launch_counts.update(before)
+        cur.wait_stream(side)
+        trace.counts["eval.graph_fallback"] += 1
+        _log.info("the eval step at %s %s runs eagerly: its capture as a "
+                  "CUDA graph raised %s: %s", tuple(x.shape), x.dtype,
+                  type(e).__name__, str(e).splitlines()[0] if str(e) else "")
+        return _EAGER
+    cur.wait_stream(side)
+    trace.counts["eval.graph_capture"] += 1
+    launches = {k: v - before[k] for k, v in launch_counts.items()
+                if v != before[k]}
+    return _Graph(graph, static_x, out, launches)
+
+
+class GraphedStep:
+    """``step(x)``, replayed as one CUDA graph per shape and dtype of a CUDA
+    tensor ``x``.
+
+    The first call of a shape runs ``step`` eagerly: it is the warm-up
+    (library handles, cached tables, the kernels' launch attributes). The
+    second captures it on a side stream into a static copy of ``x`` and
+    replays the graph at once; each later call copies ``x`` into that
+    buffer and replays. A capture that raises (a step that reads the host:
+    ``.item()``, a copy from pageable memory, a sync; or any other
+    refusal) leaves that shape eager from then on, with the eager answers.
+    Any other ``x`` runs eagerly, as do shapes past :data:`MAX_GRAPHS`.
+    A graphed batch shows one ``eval.graph`` span (device-timed) in place
+    of the step's own spans, and adds the launches its capture counted to
+    ``kernels.launch_counts``; ``trace.counts`` counts the captures,
+    replays and fallbacks.
+
+    The contract: every tensor ``step`` reads besides ``x`` (weights,
+    tables) keeps its storage and is updated in place between calls
+    (``load_state_dict`` copies in place); and the outputs of a replay are
+    the graph's own buffers, overwritten by the next replay, so they are
+    copied out before it (:func:`dispatch_step` enqueues their copy to the
+    host on the same stream).
+    """
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self._graphs: Dict[tuple, Any] = {}    # shape -> _SEEN/_Graph/_EAGER
+
+    def __call__(self, x):
+        if not (isinstance(x, torch.Tensor) and x.is_cuda):
+            return self.step(x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        g = self._graphs.get(key)
+        if isinstance(g, _Graph):
+            return g.replay(x)
+        if g is None and len(self._graphs) < MAX_GRAPHS:
+            self._graphs[key] = _SEEN
+        elif g is _SEEN:
+            g = self._graphs[key] = _capture(self.step, x)
+            if g is not _EAGER:
+                return g.replay(x, captured=True)
+        return self.step(x)
+
+
 def dispatch_step(step: Callable, images, device: torch.device):
     """Enqueue ``step`` on one uint8 batch and its dets' copy to the host,
     without waiting for either. ``images`` (numpy or tensor) goes up through
@@ -238,7 +375,7 @@ class Evaluator:
                 return step
 
             fns = [wrap(f) for f in fns]
-        self._steps = fns
+        self._steps = [GraphedStep(f) for f in fns]
         self._step = fns[0]
 
     def run(self, batches: Iterable[Dict[str, Any]],

@@ -201,11 +201,10 @@ def fused_select_decode_packed(packed, num_classes: int, *, topk: int = 1024,
     wh = (torch.sigmoid(box_rows[..., 2:4]) * 2.0) ** 2 * aw
     boxes = torch.cat([xy - wh * 0.5, xy + wh * 0.5], -1)
 
-    # mask box/pad lanes out of the class top-k, in bf16 like the reference
+    # mask box/pad lanes out of the class top-k, in bf16 like the reference;
+    # a Python scalar, so no host-to-device copy (nor its sync) a call
     lane = torch.arange(cp, device=rows.device)
-    cls_rows = torch.where(lane < c, rows,
-                           torch.tensor(-1e4, dtype=rows.dtype,
-                                        device=rows.device))
+    cls_rows = torch.where(lane < c, rows, -1e4)
     return _expand_pairs(boxes, obj, cls_rows, num_classes=c, topk=topk,
                          conf_thres=conf_thres,
                          max_cls_per_box=max_cls_per_box)

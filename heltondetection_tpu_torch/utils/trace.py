@@ -19,12 +19,17 @@ of ``torch.profiler``'s events (the Unix epoch: ``perf_counter_ns`` plus
 an offset taken at :func:`enable`). A span with ``device=True`` where
 CUDA is in use records a timing CUDA event at each of its edges on the
 current stream; :func:`take` waits for them and reads them, and no span
-synchronizes. With ``profiler=True`` each span also enters ``torch.profiler.record_function(name)``, so it shows in
-a profiler's trace as a user annotation. At most ``MAX_RECORDS`` spans are
+synchronizes. A span opened while the current stream is capturing a CUDA
+graph records no event: an event recorded into a capture cannot be timed.
+With ``profiler=True`` each span also enters
+``torch.profiler.record_function(name)``, so it shows in a profiler's
+trace as a user annotation. At most ``MAX_RECORDS`` spans are
 kept between two takes; the rest are counted as ``trace.dropped``.
 
 The kernels' launches are counted in one place, ``kernels.launch_counts``;
-:func:`take` reports those since the last take as ``kernel.<name>``.
+:func:`take` reports those since the last take as ``kernel.<name>``. The
+other counters are :data:`counts`, plain integers that the program adds to
+whether the tracer is on or not, reported under their own names.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from torch.profiler import record_function
 from heltondetection_tpu_torch.kernels import launch_counts
 
 MAX_RECORDS = 100_000
+
+# the evaluator's CUDA graphs (``engine/evaluator.py:GraphedStep``):
+# steps captured, batches replayed, captures that fell back to eager
+counts: Dict[str, int] = {"eval.graph_capture": 0, "eval.graph_replay": 0,
+                          "eval.graph_fallback": 0}
 
 
 class _Off:
@@ -73,6 +83,16 @@ def _cuda_in_use() -> bool:
     return torch.cuda.is_initialized()
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+def _counter_values() -> Dict[str, int]:
+    got = {f"kernel.{k}": v for k, v in launch_counts.items()}
+    got.update(counts)
+    return got
+
+
 class _Tracer:
     def __init__(self, profiler: bool):
         self.profiler = profiler
@@ -82,7 +102,7 @@ class _Tracer:
         self.seq = itertools.count()
         self.records: List[tuple] = []
         self.dropped = 0
-        self.launches = dict(launch_counts)
+        self.counted = _counter_values()
 
     def stack(self) -> List["_Span"]:
         s = getattr(self.local, "stack", None)
@@ -118,7 +138,7 @@ class _Span:
         if tr.profiler:
             self.ranged = record_function(self.name)
             self.ranged.__enter__()
-        if self.device and _cuda_in_use():
+        if self.device and _cuda_in_use() and not _capturing():
             self.ev0 = torch.cuda.Event(enable_timing=True)
             self.ev0.record()
         return self
@@ -174,7 +194,8 @@ def take() -> Dict:
     clear them: ``spans`` (one dict a span, in the order they ended),
     ``summary`` ({name: count, host_ms, self_ms (the span less its
     children), device_ms (None without device events)}) and ``counters``
-    (``kernel.<name>`` launches and ``trace.dropped``). Empty when the
+    (``kernel.<name>`` launches, :data:`counts` and ``trace.dropped``;
+    those that did not move are left out). Empty when the
     tracer is off."""
     tr = _tracer
     if tr is None:
@@ -183,14 +204,14 @@ def take() -> Dict:
         recs, tr.records = tr.records, []
         dropped, tr.dropped = tr.dropped, 0
     counters: Dict[str, int] = {}
-    now = dict(launch_counts)
+    now = _counter_values()
     for k, v in now.items():
         # a reset of the counts since the last take: count from the reset
-        d = v - tr.launches.get(k, 0)
+        d = v - tr.counted.get(k, 0)
         d = v if d < 0 else d
         if d:
-            counters[f"kernel.{k}"] = d
-    tr.launches = now
+            counters[k] = d
+    tr.counted = now
     if dropped:
         counters["trace.dropped"] = dropped
     spans, child_ns = [], {}

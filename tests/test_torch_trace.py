@@ -62,6 +62,7 @@ def _fake_cuda(monkeypatch):
         raise AssertionError("a span synchronized the device")
 
     monkeypatch.setattr(trace, "_cuda_in_use", lambda: True)
+    monkeypatch.setattr(trace, "_capturing", lambda: False)
     monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", refuse)
     monkeypatch.setattr(_FakeEvent, "waits", 0)
@@ -153,6 +154,31 @@ def test_take_clears_and_reports_kernel_launches(monkeypatch):
     kernels.reset_launch_counts()
     kernels.launch_counts["nms_fixpoint"] += 3
     assert trace.take()["counters"] == {"kernel.nms_fixpoint": 3}
+
+
+def test_take_reports_the_program_counters(monkeypatch):
+    """``trace.counts`` since the last take, under their own names."""
+    for k in trace.counts:
+        monkeypatch.setitem(trace.counts, k, 3)
+    trace.enable()
+    trace.counts["eval.graph_replay"] += 2
+    trace.counts["eval.graph_capture"] += 1
+    assert trace.take()["counters"] == {"eval.graph_replay": 2,
+                                        "eval.graph_capture": 1}
+    assert trace.take()["counters"] == {}
+
+
+def test_no_device_event_while_capturing(monkeypatch):
+    """A span opened while the current stream captures a CUDA graph records
+    no event: one recorded into a capture cannot be timed."""
+    _fake_cuda(monkeypatch)
+    monkeypatch.setattr(trace, "_capturing", lambda: True)
+    trace.enable()
+    with trace.span("captured", device=True):
+        pass
+    got = trace.take()
+    assert _FakeEvent.waits == 0
+    assert got["spans"][0]["device_ms"] is None
 
 
 def test_cap_drops_and_counts(monkeypatch):
